@@ -1,0 +1,141 @@
+// flash_decode: decode attention over a heads-major KV slot cache,
+// hand-written for sm_90a.
+//
+// Replaces the TPU kernel `_decode_kernel` (called from `_decode_call`) of
+// d9d_tpu/ops/attention/pallas_decode.py: the T new tokens of every batch
+// row, sitting at cache positions start[b] + [0, T), attend the slot cache
+// [B, Hkv, S, D] with a slot-causal mask, an optional sliding window and an
+// optional per-key validity vector; a row that sees no key yields exact
+// zeros. Returns (o, lse); the sink correction stays outside.
+//
+// Bound on this card: bytes. A decode step (T = 1) does 4*g flops per cache
+// element it reads, far below the ridge, so the least time is the bytes of
+// cache up to start + T over the memory rate. The design therefore reads
+// each (batch row, kv head) cache slice once for the whole GQA group: the
+// g*T query rows of a group share the key/value tiles a block loads.
+//
+// What differs from the TPU design:
+// - the block reads its own start = offsets[b] (no scalar prefetch) and
+//   loops only over key tiles at or before start + T - 1 and past the
+//   window floor;
+// - the g*T rows are tiled over blocks (8, 16 or 64 rows each), so a
+//   continuation chunk of any size rides this kernel: the MAX_DECODE_ROWS
+//   limit of the TPU kernel was a VMEM limit and has no counterpart here;
+// - B*Hkv blocks do not fill 132 SMs at small batch, so the key range is
+//   split over grid.z (n_splits chosen by the wrapper from the shapes only,
+//   with the tiling that d9d_flash_decode_tiling reports) and a second small
+//   kernel merges the partial (o, lse) by logsumexp.
+//
+// A single-token step (at most 8 rows per kv head) and every float32 call run
+// their products in fp32 on the CUDA cores (attn_tile.cuh): enough for a step
+// that is bound by memory traffic. A bfloat16 continuation chunk is bound by
+// operations and takes the tensor-core core (attn_mma.cuh).
+#include "attn_mma.cuh"
+#include "attn_tile.cuh"
+
+using namespace d9d;
+
+namespace {
+// The routing rule, in one place: the launchers below and the tiling query
+// the wrapper sizes its key split with both read it.
+constexpr int FEW_ROWS = 8;      // a single-token step: g rows per kv head
+constexpr int FMA_ROW_TILE = 16;
+constexpr int FMA_KEY_TILE = 32;
+constexpr int SPLIT_ALIGN = 64;  // split_len granularity
+static_assert(SPLIT_ALIGN % FMA_KEY_TILE == 0 && SPLIT_ALIGN % MMA_BN == 0,
+              "a split starts on a key tile of every core");
+
+inline bool takes_mma(int dtype, int rows) {
+  return dtype == 1 && rows > FEW_ROWS;
+}
+inline int decode_row_tile(int dtype, int rows) {
+  if (takes_mma(dtype, rows)) return MMA_BM;
+  return rows <= FEW_ROWS ? FEW_ROWS : FMA_ROW_TILE;
+}
+
+// a single-token step has g rows per kv head: a narrower row tile wastes
+// less of the score and PV phases on rows that do not exist
+template <typename T>
+cudaError_t dispatch_decode_fma(const AttnParams& p, int D, cudaStream_t stream) {
+  const bool few_rows = p.g * p.T <= FEW_ROWS;
+  if (D == 128) {
+    return few_rows
+        ? launch_attn<T, 128, FEW_ROWS, FMA_KEY_TILE, 128>(p, stream)
+        : launch_attn<T, 128, FMA_ROW_TILE, FMA_KEY_TILE, 128>(p, stream);
+  }
+  if (D == 64) {
+    return few_rows
+        ? launch_attn<T, 64, FEW_ROWS, FMA_KEY_TILE, 128>(p, stream)
+        : launch_attn<T, 64, FMA_ROW_TILE, FMA_KEY_TILE, 128>(p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+cudaError_t dispatch_decode_bf16(const AttnParams& p, int D, cudaStream_t stream) {
+  if (!takes_mma(1, p.g * p.T)) {
+    return dispatch_decode_fma<__nv_bfloat16>(p, D, stream);
+  }
+  if (D == 128) return launch_attn_mma<128>(p, stream);
+  if (D == 64) return launch_attn_mma<64>(p, stream);
+  return cudaErrorInvalidValue;
+}
+}  // namespace
+
+// The tiling a call with `rows` = g*T query rows per kv head will run with:
+// query rows per block, and the granularity split_len must keep. Host code
+// only; the wrapper sizes its key split and scratch from it.
+extern "C" int d9d_flash_decode_tiling(int dtype, int rows, int* row_tile,
+                                       int* split_align) {
+  if ((dtype != 0 && dtype != 1) || rows <= 0 || row_tile == nullptr ||
+      split_align == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *row_tile = decode_row_tile(dtype, rows);
+  *split_align = SPLIT_ALIGN;
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; head_dim is
+// contiguous. q/o are [B, T, Hq, D]-addressed, the caches [B, Hkv, S, D]-
+// addressed, lse contiguous [B, Hq, T] fp32, offsets int32 [B], kv_valid
+// int32 [B, S] (0/1) or null. With n_splits > 1, o_part
+// [B*Hkv, n_splits, g*T, D] and lse_part [B*Hkv, n_splits, g*T] are fp32
+// scratch the caller allocated; split_len is a multiple of SPLIT_ALIGN with
+// n_splits * split_len >= S. Launches on `stream`, allocates nothing, never
+// synchronizes.
+extern "C" int d9d_flash_decode(
+    const void* q, const void* k_cache, const void* v_cache, void* o,
+    void* lse, const void* offsets, const void* kv_valid,
+    void* o_part, void* lse_part,
+    int B, int T, int Hq, int Hkv, int S, int D, int dtype,
+    long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_st, long long o_sh,
+    float scale, int window, int n_splits, int split_len, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      n_splits < 1 || split_len % SPLIT_ALIGN != 0 ||
+      (long long)n_splits * split_len < S ||
+      (n_splits > 1 && (o_part == nullptr || lse_part == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnParams p{};
+  p.q = q; p.k = k_cache; p.v = v_cache; p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.offsets = static_cast<const int*>(offsets);
+  p.q_tag = nullptr;
+  p.k_tag = static_cast<const int*>(kv_valid);
+  p.o_part = static_cast<float*>(o_part);
+  p.lse_part = static_cast<float*>(lse_part);
+  p.B = B; p.T = T; p.Hq = Hq; p.Hkv = Hkv; p.S = S; p.g = Hq / Hkv;
+  p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
+  p.scale = scale; p.causal = 1; p.window = window;
+  p.n_splits = n_splits; p.split_len = split_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 0 ? dispatch_decode_fma<float>(p, D, s)
+                  : dtype == 1 ? dispatch_decode_bf16(p, D, s)
+                               : cudaErrorInvalidValue;
+  return (int)err;
+}
