@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the ``d9d_tpu`` serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of ``d9d_tpu`` for NVIDIA Hopper: its serving path and
+its single-device training path so far.
 
 The directory layout mirrors ``d9d_tpu`` so every module has a findable
-counterpart (``ops/rope.py``, ``nn/attention.py``, ``loop/generate.py``…).
-Nothing here imports ``jax`` or the JAX package; the two kernels the JAX
-package wrote in Pallas for this path (flash prefill, flash decode) are
-hand-written CUDA C++ under ``csrc/``, compiled with ``nvcc`` at first use.
+counterpart (``ops/rope.py``, ``nn/attention.py``, ``loop/generate.py``,
+``loop/train.py``…). Nothing here imports ``jax`` or the JAX package; the
+kernels the JAX package wrote in Pallas for these paths (flash forward,
+flash backward, flash decode) are hand-written CUDA C++ under ``csrc/``,
+compiled with ``nvcc`` at first use.
 
 Dispatch rule, everywhere: a tensor that lies on the CPU takes the plain
 PyTorch version of a kernel; a CUDA tensor launches the kernel or raises.

@@ -1,0 +1,19 @@
+"""Step counting (counterpart of ``d9d_tpu/loop/components/stepper.py``
+``Stepper``; its checkpoint state and ``StepActionPeriod`` come with the
+checkpointer)."""
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class Stepper:
+    total_steps: int | None = None
+    step: int = 0
+
+    def advance(self) -> int:
+        self.step += 1
+        return self.step
+
+    @property
+    def finished(self) -> bool:
+        return self.total_steps is not None and self.step >= self.total_steps

@@ -11,7 +11,11 @@ parameters of the port's counterpart module (a whole
   are concatenated in range order into the single table the port holds
   (``nn/vocab_ranges.py``);
 - ``layers_<i>`` maps to ``layers.<i>``;
-- norm weights and sinks are copied as they are.
+- norm weights and sinks are copied as they are;
+- a leading ``params/`` (the variable collection of a JAX ``Trainer``'s
+  ``trainer.params``) is dropped, so a JAX training run's fp32 parameters
+  load as they are into the port's trainable modules, in the parameters'
+  own dtype.
 
 It raises on any key of ``flat`` that is left over and on any parameter of
 the model that got no value. This module imports numpy and torch only.
@@ -37,6 +41,8 @@ def _to_tensor(value, like: torch.Tensor) -> torch.Tensor:
 def load_jax_params(model, flat: dict) -> None:
     """Fill ``model``'s parameters in place from a flattened flax tree."""
     remaining = dict(flat)
+    if remaining and all(k.startswith("params/") for k in remaining):
+        remaining = {k[len("params/"):]: v for k, v in remaining.items()}
     loaded: set[str] = set()
     params = dict(model.named_parameters())
 

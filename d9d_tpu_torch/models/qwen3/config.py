@@ -1,7 +1,6 @@
 """Qwen3-dense model family configuration (counterpart of
-``d9d_tpu/models/qwen3/config.py``). Frozen dataclass; the training-only
-fields of the JAX config (remat) have no meaning on the serving path and
-are not carried."""
+``d9d_tpu/models/qwen3/config.py``). Frozen dataclass with the JAX
+config's fields and defaults."""
 
 import dataclasses
 
@@ -26,6 +25,10 @@ class Qwen3DenseConfig:
     use_output_gate: bool = False
     # single matmul for q/k/v (runtime weight concat; nn/attention.py)
     fused_qkv: bool = False
+    # recompute each decoder layer in the backward (training only); the
+    # port has the "full" policy — every other policy name raises
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def vocab_size(self) -> int:
@@ -42,6 +45,7 @@ class Qwen3DenseConfig:
             num_kv_heads=2,
             head_dim=16,
             intermediate_size=128,
+            remat=False,
         )
 
     @staticmethod

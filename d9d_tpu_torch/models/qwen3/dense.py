@@ -2,10 +2,14 @@
 ``Qwen3DenseBackbone`` / ``Qwen3DenseCausalLM`` in
 ``d9d_tpu/models/qwen3/dense.py``).
 
-Single pipeline stage only (the whole model on one device); no remat, no
-activation-sharding pins, no numerics taps — those belong to the training
-and multi-device paths, which are not ported yet. Layer ``i`` is
-``model.layers[i]``, the counterpart of the JAX tree's ``layers_{i}``.
+Single pipeline stage only (the whole model on one device); no
+activation-sharding pins and no numerics taps — those belong to the
+multi-device paths, which are not ported yet. ``remat`` with the ``"full"``
+policy recomputes each decoder layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat`` with no saved
+residuals); the JAX package's other policies are not ported and raise.
+Layer ``i`` is ``model.layers[i]``, the counterpart of the JAX tree's
+``layers_{i}``.
 
 Weights are created directly on the device, layer by layer, from one seeded
 ``torch.Generator`` — there is never a full copy on the host.
@@ -15,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.models.qwen3.config import Qwen3DenseConfig
@@ -48,6 +53,11 @@ class Qwen3DenseBackbone(nn.Module):
     ):
         super().__init__()
         cfg = config
+        if cfg.remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported; the port "
+                f"recomputes whole layers (remat_policy='full')"
+            )
         self.config = cfg
         self.decode_max_length = decode_max_length
         self.dtype = dtype
@@ -99,22 +109,33 @@ class Qwen3DenseBackbone(nn.Module):
         cos, sin = make_rope_cos_sin(
             positions, self.inv_freq, self.rope_attention_scale
         )
+        # remat is a backward-pass tool: decode is forward-only, and a
+        # forward without autograd has nothing to recompute
+        remat = (self.config.remat and self.decode_max_length == 0
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, mask,
-                      None if cache is None else cache.layer(i, x.shape[1]))
+            if remat:
+                x = checkpoint(layer, x, cos, sin, mask, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, mask,
+                          None if cache is None else cache.layer(i, x.shape[1]))
         if cache is not None:
             cache.advance(x.shape[1])
         return self.norm(x)
 
 
 class Qwen3DenseCausalLM(nn.Module):
-    """Backbone + LM head; ``logits`` / ``logits_last`` serve inference.
+    """Backbone + fused-CE LM head. ``forward`` with labels returns the
+    per-token loss ``[B, T]`` (training); ``logits`` / ``logits_last``
+    serve inference and never build an autograd graph.
 
     ``device=None`` means the card (raises without one). ``seed`` seeds the
     device generator the random weights are drawn from. ``sdpa=None`` builds
-    the flash backend. With ``decode_max_length > 0`` the model runs in
-    KV-cache decode mode and every call takes the :class:`DecodeCache` made
-    by :meth:`init_cache`.
+    the flash backend. ``param_dtype`` is the dtype parameters are held in
+    (``None``: the compute ``dtype``; training passes ``torch.float32``, the
+    JAX package's default). With ``decode_max_length > 0`` the model runs
+    in KV-cache decode mode and every call takes the :class:`DecodeCache`
+    made by :meth:`init_cache`.
     """
 
     def __init__(
@@ -123,6 +144,7 @@ class Qwen3DenseCausalLM(nn.Module):
         sdpa: SdpaBackend | None = None,
         *,
         decode_max_length: int = 0,
+        ce_chunk_size: "int | str" = "auto",
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
@@ -141,7 +163,8 @@ class Qwen3DenseCausalLM(nn.Module):
             dtype=dtype, param_dtype=param_dtype, device=dev, generator=gen,
         )
         self.lm_head = LanguageModellingHead(
-            config.vocab_ranges, config.hidden_size, dtype=dtype,
+            config.vocab_ranges, config.hidden_size,
+            ce_chunk_size=ce_chunk_size, dtype=dtype,
             param_dtype=param_dtype, device=dev, generator=gen,
         )
 
@@ -161,10 +184,16 @@ class Qwen3DenseCausalLM(nn.Module):
         self,
         x: torch.Tensor,
         positions: torch.Tensor,
+        labels: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
         cache: Optional[DecodeCache] = None,
     ) -> torch.Tensor:
-        return self.model(x, positions, mask, cache)
+        """``x [B, T]`` tokens, ``positions [B, T]`` → per-token fp32 loss
+        ``[B, T]`` with ``labels``, else the final hidden state."""
+        h = self.model(x, positions, mask, cache)
+        if labels is not None:
+            return self.lm_head(h, labels)
+        return h
 
     @torch.no_grad()
     def logits(

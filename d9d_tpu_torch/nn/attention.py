@@ -289,9 +289,7 @@ class GroupedQueryAttention(nn.Module):
         self.sinks = None
         if use_sinks:
             self.sinks = nn.Parameter(
-                torch.zeros(h, dtype=torch.float32, device=dev),
-                requires_grad=False,
-            )
+                torch.zeros(h, dtype=torch.float32, device=dev))
         if use_output_gate:
             self.gate_proj = Projection(hidden_size, h * d, **kw)
         self.o_proj = Projection(h * d, hidden_size, **kw)

@@ -38,7 +38,7 @@ class TokenEmbedding(nn.Module):
             device=dev,
         )
         weight.normal_(0.0, 1.0, generator=generator)
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight)
 
     @property
     def vocab_size(self) -> int:

@@ -1,13 +1,14 @@
-"""Language-modelling head: raw logits for inference (counterpart of
-``LanguageModellingHead.logits`` in ``d9d_tpu/nn/heads.py``; the fused
-cross-entropy ``__call__`` belongs to the training path and is not ported
-yet)."""
+"""Language-modelling head (counterpart of ``LanguageModellingHead`` in
+``d9d_tpu/nn/heads.py``): the fused linear + cross-entropy ``forward`` that
+training calls, and raw ``logits`` for inference."""
 
 import torch
 from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
+from d9d_tpu_torch.nn.init import lecun_normal_
 from d9d_tpu_torch.nn.vocab_ranges import VocabRanges, vocab_size
+from d9d_tpu_torch.ops.linear_ce import linear_cross_entropy
 
 # rows of the table widened to fp32 at a time when it is stored narrower
 _LOGITS_VOCAB_CHUNK = 16_384
@@ -15,13 +16,19 @@ _LOGITS_VOCAB_CHUNK = 16_384
 
 class LanguageModellingHead(nn.Module):
     """LM head over named vocab ranges, held concatenated as one ``weight
-    [vocab, hidden]`` table (see ``nn/vocab_ranges.py``)."""
+    [vocab, hidden]`` table (see ``nn/vocab_ranges.py``).
+
+    Each range's rows are drawn as the JAX package draws its ``head_<range>``
+    table ``[size, hidden]``: lecun-normal with fan_in = that table's first
+    axis, i.e. the range's size (flax's ``in_axis=-2``), not ``hidden``.
+    """
 
     def __init__(
         self,
         vocab_ranges: VocabRanges,
         hidden_size: int,
         *,
+        ce_chunk_size: "int | str" = "auto",
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
@@ -30,13 +37,32 @@ class LanguageModellingHead(nn.Module):
         super().__init__()
         self.vocab_ranges = tuple(vocab_ranges)
         self.hidden_size = hidden_size
+        self.ce_chunk_size = ce_chunk_size
         self.dtype = dtype
         weight = torch.empty(
             (vocab_size(self.vocab_ranges), hidden_size),
             dtype=param_dtype or dtype, device=resolve_device(device),
         )
-        weight.normal_(0.0, hidden_size**-0.5, generator=generator)
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        lo = 0
+        for _name, size in self.vocab_ranges:
+            lecun_normal_(weight[lo:lo + size], size, generator)
+            lo += size
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """``hidden [B, T, D]``, ``labels [B, T]`` → per-token loss ``[B, T]``
+        (fp32, 0 where the label is -100), never holding the ``[B*T, V]``
+        logits at once. The CE matmul policy follows the compute dtype, as
+        in the JAX head: bf16 models multiply bf16 operands into fp32
+        logits, fp32 models stay exact."""
+        b, t, d = hidden.shape
+        loss = linear_cross_entropy(
+            hidden.reshape(b * t, d).to(self.dtype),
+            self.weight,
+            labels.reshape(b * t),
+            chunk_size=self.ce_chunk_size,
+        )
+        return loss.reshape(b, t)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """``hidden [..., hidden]`` → float32 logits ``[..., vocab]``.

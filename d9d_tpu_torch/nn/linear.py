@@ -2,9 +2,10 @@
 
 Stands where the JAX package uses ``flax.linen.Dense(use_bias=False)``:
 PyTorch's ``[out, in]`` weight layout (``model_state/from_jax.py``
-transposes the flax ``[in, out]`` kernels), lecun-normal init drawn on the
-device from an explicit generator, the parameter cast to the compute dtype
-at use when the two differ.
+transposes the flax ``[in, out]`` kernels), flax's truncated lecun-normal
+init (fan_in = ``in_features``, the first axis of the flax kernel) drawn on
+the device from an explicit generator, the parameter held in
+``param_dtype`` and cast to the compute dtype at use when the two differ.
 """
 
 import torch
@@ -12,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
+from d9d_tpu_torch.nn.init import lecun_normal_
 
 
 class Projection(nn.Module):
@@ -33,9 +35,8 @@ class Projection(nn.Module):
             (out_features, in_features), dtype=param_dtype or dtype,
             device=resolve_device(device),
         )
-        # lecun normal: variance 1 / fan_in
-        weight.normal_(0.0, in_features**-0.5, generator=generator)
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        lecun_normal_(weight, in_features, generator)
+        self.weight = nn.Parameter(weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # casts only where the dtypes differ: a no-op `.to` still costs a

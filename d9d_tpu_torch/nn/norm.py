@@ -30,8 +30,7 @@ class RMSNorm(nn.Module):
         self.zero_centered = zero_centered
         init = torch.zeros if zero_centered else torch.ones
         self.weight = nn.Parameter(
-            init(hidden_size, dtype=param_dtype, device=resolve_device(device)),
-            requires_grad=False,
+            init(hidden_size, dtype=param_dtype, device=resolve_device(device))
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,13 @@ class SdpaEagerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SdpaFlashConfig:
-    """Flash-attention forward kernel (``ops/attention/flash.py``): the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors."""
+    """Flash-attention kernels (``ops/attention/flash.py``): the CUDA
+    kernels for CUDA tensors, their plain versions for CPU tensors.
+    ``fused_bwd`` selects the one-pass backward kernel over the split
+    dq / dk-dv pair."""
 
     type: str = "flash"
+    fused_bwd: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ def build_sdpa_backend(config: SdpaBackendConfig | None = None) -> SdpaBackend:
     if isinstance(config, SdpaFlashConfig):
         from d9d_tpu_torch.ops.attention.flash import make_flash_sdpa
 
-        return make_flash_sdpa()
+        return make_flash_sdpa(fused_bwd=config.fused_bwd)
     if isinstance(config, SdpaRingConfig):
         raise NotImplementedError(
             "the ring (context-parallel) SDPA backend is not ported yet"

@@ -1,4 +1,5 @@
 from d9d_tpu_torch.ops.attention.eager import eager_sdpa
+from d9d_tpu_torch.ops.linear_ce import LM_IGNORE_INDEX, linear_cross_entropy
 from d9d_tpu_torch.ops.rms_norm import rms_norm
 from d9d_tpu_torch.ops.rope import (
     RopeScaling,
@@ -15,7 +16,9 @@ from d9d_tpu_torch.ops.rope import (
 from d9d_tpu_torch.ops.swiglu import silu_mul, swiglu
 
 __all__ = [
+    "LM_IGNORE_INDEX",
     "eager_sdpa",
+    "linear_cross_entropy",
     "rms_norm",
     "RopeScaling",
     "RopeScalingLinear",

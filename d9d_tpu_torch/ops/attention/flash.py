@@ -1,14 +1,19 @@
-"""Flash-attention forward for prefill: the CUDA kernel's wrapper, its plain
-PyTorch version, and the SDPA backend built on them.
+"""Flash attention for prefill and training: the CUDA kernels' wrappers,
+their plain PyTorch versions, the autograd ``Function`` and the SDPA backend
+built on them.
 
-Counterpart of ``d9d_tpu/ops/attention/pallas_flash.py`` (forward only:
-``_fwd_kernel`` / ``_fwd_call``, the sink fold of ``_flash_fwd`` and the
-``make_pallas_flash_sdpa`` closure). The kernel itself is
-``d9d_tpu_torch/csrc/flash_fwd.cu``.
+Counterpart of ``d9d_tpu/ops/attention/pallas_flash.py``: the forward
+(``_fwd_kernel`` / ``_fwd_call``, the sink fold of ``_flash_fwd``), the
+backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, ``_bwd_fused_kernel`` /
+``_bwd_call``, the delta and dsinks terms of ``_flash_bwd``), the
+``custom_vjp`` ``_flash`` and the ``make_pallas_flash_sdpa`` closure. The
+kernels themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` and
+``d9d_tpu_torch/csrc/flash_bwd.cu``.
 
-Dispatch: a tensor on the CPU takes :func:`flash_attention_plain`; a CUDA
-tensor launches the kernel or raises. No backward: inputs that require grad
-are refused.
+Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
+launches the kernel or raises. The kernel wrappers refuse inputs that
+require grad: gradients go through :class:`FlashAttentionFunction`, which
+hands the kernels detached tensors.
 """
 
 
@@ -24,6 +29,23 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 def _check_segments(q_segments, kv_segments):
     if (q_segments is None) != (kv_segments is None):
         raise ValueError("q_segments and kv_segments must be provided together")
+
+
+def _mask(t, s, dev, causal, window_size, q_segments, kv_segments):
+    """Visibility ``[B or 1, 1, 1, T, S]`` of the kernels: causal, window,
+    segment equality."""
+    q_pos = torch.arange(t, device=dev)[:, None]
+    k_pos = torch.arange(s, device=dev)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window_size is not None:
+        mask = mask & (k_pos > q_pos - window_size)
+    mask = mask[None, None, None]
+    if q_segments is not None:
+        seg = q_segments[:, :, None] == kv_segments[:, None, :]  # [B,T,S]
+        mask = mask & seg[:, None, None]
+    return mask
 
 
 def flash_attention_plain(
@@ -59,18 +81,7 @@ def flash_attention_plain(
     qf = q.float().reshape(b, t, hkv, g, d)
     logits = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
 
-    dev = q.device
-    q_pos = torch.arange(t, device=dev)[:, None]
-    k_pos = torch.arange(s, device=dev)[None, :]
-    mask = torch.ones((t, s), dtype=torch.bool, device=dev)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window_size is not None:
-        mask = mask & (k_pos > q_pos - window_size)
-    mask = mask[None, None, None]  # [1,1,1,T,S]
-    if q_segments is not None:
-        seg = q_segments[:, :, None] == kv_segments[:, None, :]  # [B,T,S]
-        mask = mask & seg[:, None, None]
+    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_BIG))
 
     m = logits.amax(dim=-1, keepdim=True)
@@ -106,7 +117,9 @@ def _check_kernel_inputs(name: str, tensors: dict, d: int) -> int:
                             f"expected {first.dtype}")
         if x.requires_grad:
             raise RuntimeError(
-                f"{name}: {label} requires grad — the kernel is forward-only"
+                f"{name}: {label} requires grad — the kernels take detached "
+                f"tensors; differentiate through FlashAttentionFunction "
+                f"(make_flash_sdpa)"
             )
         if x.stride(-1) != 1:
             raise ValueError(f"{name}: {label} needs a contiguous head_dim")
@@ -215,14 +228,259 @@ def apply_sinks(
     return o, lse + torch.log1p(corr)
 
 
-def make_flash_sdpa():
-    """Build an SDPA backend on the flash forward kernel.
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+    window_size: int | None = None,
+    q_segments: torch.Tensor | None = None,
+    kv_segments: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the three backward kernels, explicit fp32
+    math: ``(dq [B,T,Hq,D], dk, dv [B,T,Hkv,D])`` in the inputs' dtypes.
+
+    The TPU kernels' arithmetic over every (query, key) pair: ``s = q.k *
+    scale`` masked to ``-1e30``, ``p = exp(s - lse)`` NOT gated by the mask
+    (so a row that sees no key, whose lse is the sentinel, gets ``p = 1``
+    on every key), ``ds = p * (do.v - delta) * scale``; ``dq = ds.k``,
+    ``dk = ds^T.q``, ``dv = p^T.do`` summed over the query heads of each kv
+    head. ``lse`` and ``delta`` are ``[B, Hq, T]`` fp32; ``delta`` is
+    ``rowsum(do * o)`` (the caller's, as in the JAX package). The split
+    kernels and the fused one compute this one function.
+    """
+    _check_segments(q_segments, kv_segments)
+    b, t, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    if s != t:
+        raise ValueError(f"flash backward needs equal q/kv lengths, got {t}/{s}")
+    g = hq // hkv
+    scale = softmax_scale if softmax_scale is not None else d**-0.5
+    qf = q.float().reshape(b, t, hkv, g, d)
+    dof = do.float().reshape(b, t, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bthgd,bshd->bhgts", qf, kf) * scale
+    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_BIG))
+    p = torch.exp(logits - lse.float().reshape(b, hkv, g, t, 1))
+    dp = torch.einsum("bthgd,bshd->bhgts", dof, vf)
+    ds = p * (dp - delta.float().reshape(b, hkv, g, t, 1)) * scale
+    dq = torch.einsum("bhgts,bshd->bthgd", ds, kf).reshape(b, t, hq, d)
+    dk = torch.einsum("bhgts,bthgd->bshd", ds, qf)
+    dv = torch.einsum("bhgts,bthgd->bshd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def fused_bwd_applies(
+    *, t: int, num_heads: int, num_kv_heads: int, head_dim: int,
+    dtype: torch.dtype,
+) -> bool:
+    """Does ``fused=True`` run the one-pass kernel for CUDA tensors of this
+    shape? Counterpart of the JAX package's ``fused_bwd_applies``, but the
+    port's fused kernel keeps dq in an fp32 buffer in device memory rather
+    than on chip, so no length limit applies: every shape the split kernels
+    take, the fused kernel takes too. A shape neither takes raises; nothing
+    falls back silently from one to the other."""
+    return (
+        t > 0
+        and num_kv_heads > 0
+        and num_heads % num_kv_heads == 0
+        and head_dim in SUPPORTED_HEAD_DIMS
+        and dtype in _DTYPE_CODE
+    )
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+    window_size: int | None = None,
+    q_segments: torch.Tensor | None = None,
+    kv_segments: torch.Tensor | None = None,
+    fused: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward → ``(dq, dk, dv)`` (see
+    :func:`flash_attention_bwd_plain` for the function).
+
+    CUDA tensors launch ``d9d_flash_bwd`` (``csrc/flash_bwd.cu``) on the
+    current stream: the dq kernel then the dk/dv kernel, or with
+    ``fused=True`` the one-pass kernel, which adds dq into a zeroed fp32
+    buffer by ``atomicAdd`` (the order of those sums is not fixed, so the
+    fused dq may differ between runs in its last bits) followed by one cast
+    to the inputs' dtype. Anything the kernels do not take raises. CPU
+    tensors take the plain version. Launch counters:
+    ``flash_attention_bwd.dq_launches`` / ``dkv_launches`` /
+    ``fused_launches``; ``plain_calls`` counts the CPU path.
+    """
+    _check_segments(q_segments, kv_segments)
+    if q.device.type == "cpu":
+        flash_attention_bwd.plain_calls += 1
+        return flash_attention_bwd_plain(
+            q, k, v, do, lse, delta, causal=causal,
+            softmax_scale=softmax_scale, window_size=window_size,
+            q_segments=q_segments, kv_segments=kv_segments,
+        )
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"flash_attention_bwd: no kernel for device {q.device}; tensors "
+            f"must lie on a CUDA device (kernel) or the CPU (plain version)"
+        )
+    b, t, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != t \
+            or k.shape[3] != d or do.shape != q.shape:
+        raise ValueError(
+            f"flash_attention_bwd: bad shapes q {q.shape} k {k.shape} "
+            f"v {v.shape} do {do.shape}"
+        )
+    hkv = k.shape[2]
+    if hq % hkv != 0:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    code = _check_kernel_inputs(
+        "flash_attention_bwd", {"q": q, "k": k, "v": v, "do": do}, d)
+    for label, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, hq, t) or x.dtype != torch.float32 \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(
+                f"flash_attention_bwd: {label} must be a contiguous float32 "
+                f"[B, Hq, T] tensor on {q.device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}"
+            )
+        if x.requires_grad:
+            raise RuntimeError(f"flash_attention_bwd: {label} requires grad")
+    scale = softmax_scale if softmax_scale is not None else d**-0.5
+
+    qs = ks = None
+    if q_segments is not None:
+        if q_segments.shape != (b, t) or kv_segments.shape != (b, t):
+            raise ValueError("flash_attention_bwd: segments must be [B, T]")
+        qs = q_segments.to(device=q.device, dtype=torch.int32).contiguous()
+        ks = kv_segments.to(device=q.device, dtype=torch.int32).contiguous()
+
+    dk = torch.empty((b, t, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, hkv, d), dtype=v.dtype, device=q.device)
+    if fused:
+        dq = torch.zeros((b, t, hq, d), dtype=torch.float32, device=q.device)
+    else:
+        dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    args = (q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code, float(scale),
+            causal, window_size)
+    if fused:
+        _launch_bwd(2, *args)
+        flash_attention_bwd.fused_launches += 1
+        return dq.to(q.dtype), dk, dv
+    _launch_bwd(0, *args)
+    flash_attention_bwd.dq_launches += 1
+    _launch_bwd(1, *args)
+    flash_attention_bwd.dkv_launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
+                scale, causal, window_size) -> None:
+    """One launch of ``d9d_flash_bwd`` (kernel 0 = dq, 1 = dk/dv, 2 =
+    fused) on checked tensors; raises on a launch error. Counts nothing:
+    :func:`flash_attention_bwd` counts its own launches."""
+    from d9d_tpu_torch.ops import kernel_lib
+
+    b, t, hq, d = q.shape
+    lib = kernel_lib.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.d9d_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if qs is None else qs.data_ptr(),
+            None if ks is None else ks.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, hq, k.shape[2], d, code, kernel,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            do.stride(0), do.stride(1), do.stride(2),
+            scale, int(bool(causal)),
+            -1 if window_size is None else int(window_size),
+            stream,
+        )
+    kernel_lib.check_launch(err, "flash_attention_bwd")
+
+
+flash_attention_bwd.dq_launches = 0     # kernel launches (CUDA path only)
+flash_attention_bwd.dkv_launches = 0
+flash_attention_bwd.fused_launches = 0
+flash_attention_bwd.plain_calls = 0     # plain-version calls (CPU tensors)
+
+
+def sink_grad(sinks: torch.Tensor, lse: torch.Tensor,
+              delta: torch.Tensor) -> torch.Tensor:
+    """Analytic sink gradient, outside the kernels as in the JAX package:
+    ``p_sink = exp(sink - lse)`` with the sink-corrected lse, ``dsink =
+    -sum_{b,t} p_sink * delta`` per head."""
+    p_sink = torch.exp(
+        torch.clamp(sinks.float()[None, :, None] - lse, max=60.0))
+    return -(p_sink * delta).sum(dim=(0, 2)).to(sinks.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (counterpart of the ``custom_vjp``
+    ``_flash``): the forward kernel plus the sink fold, saving ``(q, k, v,
+    o, lse)`` with the sink-corrected ``lse``; the backward forms ``delta =
+    rowsum(do * o)`` and ``dsinks`` in plain PyTorch and runs the backward
+    kernels (split, or one-pass with ``fused_bwd``). Segment ids get no
+    gradient. The kernels only ever see detached tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sinks, q_segments, kv_segments, causal,
+                softmax_scale, window_size, fused_bwd):
+        kw = dict(causal=causal, softmax_scale=softmax_scale,
+                  window_size=window_size, q_segments=q_segments,
+                  kv_segments=kv_segments)
+        o, lse = flash_attention(q.detach(), k.detach(), v.detach(), **kw)
+        if sinks is not None:
+            o, lse = apply_sinks(o, lse, sinks.detach())
+        ctx.save_for_backward(q, k, v, o, lse, sinks, q_segments, kv_segments)
+        ctx.kw = dict(causal=causal, softmax_scale=softmax_scale,
+                      window_size=window_size, fused=fused_bwd)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, sinks, q_seg, kv_seg = ctx.saved_tensors
+        do = do.detach().contiguous()
+        # delta = rowsum(dO * O) per (b, h, t), O as the forward saved it
+        delta = torch.einsum(
+            "bthd,bthd->bht", do.float(), o.float()).contiguous()
+        dq, dk, dv = flash_attention_bwd(
+            q.detach(), k.detach(), v.detach(), do, lse, delta,
+            q_segments=q_seg, kv_segments=kv_seg, **ctx.kw,
+        )
+        dsinks = None
+        if sinks is not None and ctx.needs_input_grad[3]:
+            dsinks = sink_grad(sinks.detach(), lse, delta)
+        return dq, dk, dv, dsinks, None, None, None, None, None, None
+
+
+def make_flash_sdpa(fused_bwd: bool = False):
+    """Build an SDPA backend on the flash kernels.
 
     Mirrors ``make_pallas_flash_sdpa``: an explicit ``mask`` or a
     cross-length call (``Tq != Tk``) has no kernel. On CPU tensors it goes to
     :func:`eager_sdpa`, counted in ``sdpa.eager_calls``; on any other device
-    it raises ``NotImplementedError``. Everything else goes to
-    :func:`flash_attention` plus the sink fold.
+    it raises ``NotImplementedError``. Everything else goes to the flash
+    kernels: through :class:`FlashAttentionFunction` when a gradient is
+    wanted, straight to :func:`flash_attention` plus the sink fold when not
+    (serving). ``fused_bwd`` selects the one-pass backward kernel; it is an
+    argument only, never read from the environment.
     """
 
     def sdpa(
@@ -251,6 +509,14 @@ def make_flash_sdpa():
                 window_size=window_size, sinks=sinks, mask=mask,
                 q_segments=q_segments, kv_segments=kv_segments,
             )
+        _check_segments(q_segments, kv_segments)
+        if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, sinks)
+        ):
+            return FlashAttentionFunction.apply(
+                q, k, v, sinks, q_segments, kv_segments, causal,
+                softmax_scale, window_size, fused_bwd,
+            )
         o, lse = flash_attention(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             window_size=window_size, q_segments=q_segments,
@@ -265,8 +531,13 @@ def make_flash_sdpa():
 
 
 __all__ = [
+    "FlashAttentionFunction",
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "fused_bwd_applies",
+    "sink_grad",
     "apply_sinks",
     "make_flash_sdpa",
     "SUPPORTED_HEAD_DIMS",

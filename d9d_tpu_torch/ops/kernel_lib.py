@@ -49,6 +49,18 @@ _SIGNATURES = {
         _F, _I, _I,                  # scale, causal, window (-1 = none)
         _P,                          # stream
     ],
+    "d9d_flash_bwd": [
+        _P, _P, _P, _P,              # q, k, v, do
+        _P, _P, _P, _P,              # lse, delta, q_seg, kv_seg (nullable)
+        _P, _P, _P,                  # dq (fp32 accumulator when fused), dk, dv
+        _I, _I, _I, _I, _I, _I, _I,  # B, T, Hq, Hkv, D, dtype, kernel
+        _L, _L, _L,                  # q strides (batch, token, head)
+        _L, _L, _L,                  # k strides
+        _L, _L, _L,                  # v strides
+        _L, _L, _L,                  # do strides
+        _F, _I, _I,                  # scale, causal, window (-1 = none)
+        _P,                          # stream
+    ],
     "d9d_flash_decode": [
         _P, _P, _P, _P, _P,          # q, k_cache, v_cache, o, lse
         _P, _P,                      # offsets [B], kv_valid [B,S] (nullable)

@@ -56,10 +56,32 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/loop/generate.py",
         "d9d_tpu_torch/loop/serve.py",
         "d9d_tpu_torch/model_state/from_jax.py",
+        "d9d_tpu_torch/ops/linear_ce.py",
+        "d9d_tpu_torch/core/mesh.py",
+        "d9d_tpu_torch/nn/init.py",
+        "d9d_tpu_torch/optim/adamw.py",
+        "d9d_tpu_torch/lr_scheduler/builder.py",
+        "d9d_tpu_torch/lr_scheduler/config.py",
+        "d9d_tpu_torch/lr_scheduler/curves.py",
+        "d9d_tpu_torch/lr_scheduler/engine.py",
+        "d9d_tpu_torch/loop/auto.py",
+        "d9d_tpu_torch/loop/config.py",
+        "d9d_tpu_torch/loop/tasks.py",
+        "d9d_tpu_torch/loop/train.py",
+        "d9d_tpu_torch/loop/train_step.py",
+        "d9d_tpu_torch/loop/control/task.py",
+        "d9d_tpu_torch/loop/control/providers.py",
+        "d9d_tpu_torch/loop/components/batch_maths.py",
+        "d9d_tpu_torch/loop/components/batch_staging.py",
+        "d9d_tpu_torch/loop/components/garbage_collector.py",
+        "d9d_tpu_torch/loop/components/metric_collector.py",
+        "d9d_tpu_torch/loop/components/stepper.py",
+        "d9d_tpu_torch/tracker/base.py",
+        "d9d_tpu_torch/tracker/providers.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {
-        "flash_fwd.cu", "flash_decode.cu"}
+        "flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu"}
 
 
 @pytest.mark.parametrize(
@@ -90,6 +112,8 @@ def test_no_environment_switch_between_kernel_and_plain_version():
         text = path.read_text()
         assert "D9D_TPU_DECODE_ATTN" not in text, path
         assert "D9D_TPU_BACKEND_SDPA" not in text, path
+        assert "D9D_TPU_FLASH_BWD" not in text, path
+        assert "os.environ" not in text and "getenv" not in text, path
         assert "is_available()" not in text or path.name == "device.py", path
 
 
@@ -148,7 +172,7 @@ def test_flash_sdpa_raises_off_the_cpu_where_it_has_no_kernel(case):
         (lambda: _qkv("cpu", torch.float64), TypeError, "not supported"),
         (lambda: _qkv("cpu", d=32), ValueError, "head_dim 32"),
         (lambda: tuple(x.requires_grad_() for x in _qkv("cpu")),
-         RuntimeError, "forward-only"),
+         RuntimeError, "requires grad .* detached"),
         (lambda: tuple(x[..., ::2] for x in _qkv("cpu", d=128)),
          ValueError, "contiguous head_dim"),
         (lambda: (_qkv("cpu")[0], _qkv("cpu")[1].bfloat16(), _qkv("cpu")[2]),
@@ -186,3 +210,14 @@ def test_kernel_library_is_keyed_by_its_sources_and_never_built_on_import():
     kernel_lib.check_launch(0, "flash_attention")
     for name, argtypes in kernel_lib._SIGNATURES.items():
         assert name.startswith("d9d_flash_") and len(argtypes) > 20
+
+
+def test_flash_bwd_wrapper_raises_for_a_non_cpu_non_cuda_tensor():
+    q, k, v = _qkv("meta")
+    lse = torch.zeros(1, 4, 4, device="meta")
+    names = ("dq_launches", "dkv_launches", "fused_launches", "plain_calls")
+    before = [getattr(tflash.flash_attention_bwd, n) for n in names]
+    for fused in (False, True):
+        with pytest.raises(RuntimeError, match="no kernel for device meta"):
+            tflash.flash_attention_bwd(q, k, v, q, lse, lse, fused=fused)
+    assert [getattr(tflash.flash_attention_bwd, n) for n in names] == before

@@ -132,7 +132,7 @@ def test_gqa_training_path_matches_jax(variant):
     cos, sin = _cos_sin(pos)
     want = _japply(jmod, {"params": params}, jnp.asarray(x), cos, sin)
     got = tmod(_t(x), _t(cos), _t(sin))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
 def _jax_decode_call(jmod, params, cache, x, pos):
@@ -149,7 +149,7 @@ def _torch_decode_call(tmod, cache, x, pos):
     cos, sin = _cos_sin(pos)
     out = tmod(_t(x), _t(cos), _t(sin), None, cache.layer(0, x.shape[1]))
     cache.advance(x.shape[1])
-    return out.numpy()
+    return out.detach().numpy()
 
 
 @pytest.mark.parametrize(
@@ -183,7 +183,7 @@ def test_gqa_decode_scalar_index_prefill_then_steps(variant, sdpa):
         np.testing.assert_allclose(got, want, **TOL)
     assert int(cache.index) == int(jcache["cache_index"]) == 11
     np.testing.assert_allclose(
-        cache.keys[0].numpy(), np.asarray(jcache["cached_key"]), **TOL
+        cache.keys[0].detach().numpy(), np.asarray(jcache["cached_key"]), **TOL
     )
 
 
@@ -247,7 +247,7 @@ def test_gqa_decode_key_validity_mask_and_general_mask():
         got = tmod(_t(xs), _t(cos), _t(sin), _t(mask),
                    cache.layer(0, xs.shape[1]))
         cache.advance(xs.shape[1])
-        return got.numpy(), np.asarray(want), state["cache"]
+        return got.detach().numpy(), np.asarray(want), state["cache"]
 
     got, want, jcache = both(x[:, :5], pos[:, :5], valid, None)
     # pad positions are don't-care but must stay finite
@@ -278,7 +278,7 @@ def test_decoder_layer_matches_jax():
     load_jax_params(tmod, _flat(params))
     want = _japply(jmod, {"params": params}, jnp.asarray(x), cos, sin)
     got = tmod(_t(x), _t(cos), _t(sin))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
 VOCAB_RANGES = (("text", 48), ("special", 16))
@@ -309,12 +309,12 @@ def test_model_logits_and_logits_last_match_jax():
                    method="logits")
     got = tm.logits(_t(ids), _t(pos))
     assert got.dtype == torch.float32 and got.shape == (2, 9, 64)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODEL_TOL)
     want_last = _japply(jm, {"params": params}, jnp.asarray(ids),
                         jnp.asarray(pos), method="logits_last")
     got_last = tm.logits_last(_t(ids), _t(pos))
     assert got_last.shape == (2, 1, 64)
-    np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last),
+    np.testing.assert_allclose(got_last.detach().numpy(), np.asarray(want_last),
                                **MODEL_TOL)
 
 
@@ -328,14 +328,14 @@ def test_model_decode_mode_matches_jax_cache_path():
                           jnp.asarray(pos[:, :6]), method="logits",
                           mutable=True)
     got = tm.logits(_t(ids[:, :6]), _t(pos[:, :6]), cache=cache)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODEL_TOL)
     for i in (6, 7):
         want, state = _japply(
             jm, {"params": params, "cache": state["cache"]},
             jnp.asarray(ids[:, i:i + 1]), jnp.asarray(pos[:, i:i + 1]),
             method="logits", mutable=True)
         got = tm.logits(_t(ids[:, i:i + 1]), _t(pos[:, i:i + 1]), cache=cache)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODEL_TOL)
     assert int(cache.index) == 8
 
 
@@ -351,7 +351,7 @@ def test_lm_head_narrow_table_is_widened_in_chunks(monkeypatch):
     got = head.logits(h)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(
-        got.numpy(), (h.float() @ head.weight.float().T).numpy(), rtol=1e-6
+        got.detach().numpy(), (h.float() @ head.weight.float().T).detach().numpy(), rtol=1e-6
     )
 
 
@@ -383,3 +383,72 @@ def test_sdpa_factory_and_device_default():
         # device=None means the card, and raises where there is none
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Qwen3DenseCausalLM(Qwen3DenseConfig.tiny())
+
+
+def _moments_and_bound(w, fan_in):
+    w = w.detach().double().flatten()
+    # flax's truncated lecun normal: a normal truncated at +-2 sigma' with
+    # sigma' = fan_in^-0.5 / 0.8796..., so the variance is 1 / fan_in
+    bound = 2.0 * fan_in**-0.5 / 0.87962566103423978
+    return float(w.mean()), float(w.var()) * fan_in, float(w.abs().max()) / bound
+
+
+def test_projection_and_head_init_is_jax_truncated_lecun_normal():
+    """Seeded draws: mean 0, variance 1/fan_in within 2 %, every value
+    inside the truncation bound and the largest near it (a normal with the
+    same variance would overshoot it ~1.3 % of the time per value). fan_in
+    is the first axis of the JAX tables: ``in_features`` for a projection
+    (flax kernel ``[in, out]``), each vocab range's size for the LM head
+    (``head_<range>`` is ``[size, hidden]``)."""
+    from d9d_tpu_torch.nn.heads import LanguageModellingHead
+    from d9d_tpu_torch.nn.linear import Projection
+
+    gen = torch.Generator().manual_seed(0)
+    proj = Projection(512, 256, dtype=torch.float32, device="cpu",
+                      generator=gen)
+    head = LanguageModellingHead((("text", 3000), ("special", 500)), 96,
+                                 dtype=torch.float32, device="cpu",
+                                 generator=gen)
+    tables = [(proj.weight, 512), (head.weight[:3000], 3000),
+              (head.weight[3000:], 500)]
+    for w, fan_in in tables:
+        mean, var_ratio, bound_ratio = _moments_and_bound(w, fan_in)
+        assert abs(mean) < 3 * (fan_in**-0.5) / np.sqrt(w.numel())
+        assert abs(var_ratio - 1.0) < 0.02
+        assert 0.97 < bound_ratio <= 1.0
+    # the JAX initializer's own draws have the same moments and bound
+    jw = jax.nn.initializers.lecun_normal()(jax.random.PRNGKey(0), (512, 256))
+    mean, var_ratio, bound_ratio = _moments_and_bound(
+        torch.from_numpy(np.array(jw)), 512)
+    assert abs(var_ratio - 1.0) < 0.02 and 0.97 < bound_ratio <= 1.0
+
+
+def test_parameters_are_trainable_and_serving_builds_no_graph():
+    """Every parameter requires grad (the training path needs them to);
+    ``generate``, ``logits`` and the batcher run under no_grad: nothing is
+    saved for a backward and every ``.grad`` stays None."""
+    from d9d_tpu_torch.loop import ContinuousBatcher, generate
+
+    tm = Qwen3DenseCausalLM(
+        Qwen3DenseConfig(vocab_ranges=(("default", 64),), hidden_size=32,
+                         num_layers=2, num_heads=4, num_kv_heads=2,
+                         head_dim=8, intermediate_size=64, use_sinks=True),
+        decode_max_length=24, dtype=torch.float32, device="cpu", seed=3)
+    params = list(tm.parameters())
+    assert params and all(p.requires_grad for p in params)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda x: saved.append(x) or x, lambda x: x):
+        ids = torch.randint(0, 64, (2, 6), generator=torch.Generator().manual_seed(0))
+        out = generate(tm, ids, max_new_tokens=4, prompt_lengths=torch.tensor([6, 3]),
+                       prefill_chunk_size=4)
+        logits = tm.logits(ids, torch.arange(6)[None].expand(2, 6),
+                           cache=tm.init_cache(2))
+        batcher = ContinuousBatcher(tm, batch_size=2, chunk_size=2)
+        for prompt in ([1, 2, 3], [4, 5], [6]):
+            batcher.submit(prompt, max_new_tokens=3)
+        streams = batcher.drain()
+    assert out.shape == (2, 4) and len(streams) == 3
+    assert not saved
+    assert not out.requires_grad and logits.grad_fn is None
+    assert all(p.grad is None for p in params)
