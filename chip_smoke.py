@@ -14,22 +14,29 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    (bf16 and fp32, at the main paths' shapes), time kernel, plain version
    and one library call that computes the same function (a yardstick only —
    the port never calls it), and compute the card's least time for the work:
-   the flash forward and decode kernels, and the three flash backward kernels
-   (dq, dk/dv, fused), the latter with negative controls for their bf16 rule;
+   the flash forward and decode kernels, the three flash backward kernels
+   (dq, dk/dv, fused) and the three MoE expert-FFN kernels (aligned, gather,
+   gather+combine), the last two families with negative controls for their
+   bf16 rules; the flash kernels also at Qwen3-30B-A3B's GQA group (g = 8);
 4. small end-to-end agreement — serving: a narrow fp32 model on the card
    (through the kernels) against the same weights on the CPU (through the
    plain versions): greedy tokens identical, logits within tolerance; the
    batcher against ``generate`` on the card. Training: 3 ``Trainer`` steps
    of a narrow fp32 model on the card against 3 on the CPU, loss and grad
    norm per step within tolerance, and a step with the fused backward
-   against the split one;
+   against the split one; the same for a narrow fp32 Qwen3-MoE model, once
+   for each expert-FFN kernel;
 5. full width, serving — Qwen3-8B (36 layers, random seeded bf16 weights):
    ``generate`` on a ragged batch with chunked prefill, then a
    ``ContinuousBatcher`` that drains 12 requests;
 6. full width, training — Qwen3-8B widths at 8 of its 36 layers (fp32
    parameters, bf16 compute, full remat, AdamW): 6 ``Trainer.train`` steps
    with the split backward, a profiled step, then 2 steps of a fresh trainer
-   with the fused backward.
+   with the fused backward;
+7. full width, MoE training — Qwen3-30B-A3B widths at 4 of its 48 layers
+   (128 experts, top-8; same setup): 6 ``Trainer.train`` steps with the
+   aligned expert-FFN kernel, a profiled step, then 2 steps each of fresh
+   trainers with the gather and the gather+combine kernels.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -158,7 +165,7 @@ def check_flash_fwd(gen):
     cases = []
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
-    def compare(tag, dtype, b, t, **kw):
+    def compare(tag, dtype, b, t, hkv=hkv, **kw):
         q = _rand((b, t, hq, d), dtype, gen)
         k = _rand((b, t, hkv, d), dtype, gen)
         v = _rand((b, t, hkv, d), dtype, gen)
@@ -191,6 +198,8 @@ def check_flash_fwd(gen):
 
     for dtype in (torch.bfloat16, torch.float32):
         compare("causal", dtype, 2, 2048)
+        # Qwen3-30B-A3B's GQA group: 32 query heads over 4 kv heads (g = 8)
+        compare("causal_g8", dtype, 2, 2048, hkv=4)
         s = segs(2, 2048, [0, 700])
         compare("segments", dtype, 2, 2048, q_segments=s, kv_segments=s)
         compare("window", dtype, 2, 2048, window_size=512)
@@ -544,6 +553,8 @@ def check_flash_bwd(gen):
 
     for dtype in (torch.bfloat16, torch.float32):
         compare("causal", dtype, 2, 2048)
+        # Qwen3-30B-A3B's GQA group: 32 query heads over 4 kv heads (g = 8)
+        compare("causal_g8", dtype, 2, 2048, hkv_=4)
         compare("window512", dtype, 2, 2048, window_size=512)
         s = segs(2, 2048, [0, 700])
         compare("segments_padding", dtype, 2, 2048, q_segments=s, kv_segments=s)
@@ -626,6 +637,275 @@ def check_flash_bwd(gen):
     }
 
 
+# Tolerances of the MoE FFN kernels vs their plain versions, same inputs.
+# Same rule as above, other constants. fp32: both sides multiply in exact
+# fp32 and differ in the order of sums only. bf16: both accumulate the bf16
+# products in fp32 (tensor cores vs fp32 products of the widened values),
+# then each rounds the hidden to bf16 before the down product — two fp32
+# values that close may round to neighbouring bf16 values, and such a flip
+# of one hidden value moves a whole output row by up to one bf16 step of
+# that value's contribution, a share of the row's size — and each rounds
+# y * probs to bf16 once: one bf16 step of the element. The negative
+# controls (a dropped tile, a tile given the wrong expert, a lost 64-wide
+# chunk of i), emulated with the plain version, must break the rule.
+MOE_ATOL = {torch.float32: 1e-6, torch.bfloat16: 1e-6}
+MOE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+MOE_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+MOE_TOLERANCE = {
+    "bf16": [MOE_ATOL[torch.bfloat16], MOE_RTOL[torch.bfloat16],
+             MOE_ROW_RTOL[torch.bfloat16]],
+    "fp32": [MOE_ATOL[torch.float32], MOE_RTOL[torch.float32],
+             MOE_ROW_RTOL[torch.float32]],
+    "rule": TOLERANCE["rule"],
+}
+MOE_KERNELS = ("moe_ffn_aligned", "moe_ffn_gather", "moe_ffn_gather_combine")
+
+
+def moe_tolerance_use(got, want, dtype):
+    want = want.float()
+    allowed = (MOE_ATOL[dtype] + MOE_RTOL[dtype] * want.abs()
+               + MOE_ROW_RTOL[dtype] * want.abs().amax(dim=-1, keepdim=True))
+    return float(((got.float() - want).abs() / allowed).max())
+
+
+def _moe_problem(gen, dtype, n, k, e, h, inter, route="router"):
+    """Tokens, expert weights and routing. The weights are uniform with
+    variance 1/(3 in) — E times the model init's variance, so that outputs
+    are of order 0.1-1 and a rounding step is visible. ``route``: "router" —
+    softmax top-k of a random bf16 router, renormalized (as TopKRouter);
+    "subset" — only experts 0..e/8-1 are chosen (most experts empty);
+    "one" — every pair on expert 3 (k must be 1)."""
+    from d9d_tpu_torch.nn.moe import top_k_indices
+    from d9d_tpu_torch.ops.moe import sort_tokens_by_expert
+
+    x = _rand((n, h), dtype, gen)
+
+    def uni(shape, fan_in):
+        bound = (1.0 / fan_in) ** 0.5  # variance 1/(3 fan_in)
+        return ((torch.rand(shape, device="cuda", generator=gen) * 2 - 1)
+                * bound).to(dtype)
+
+    wg, wu = uni((e, h, inter), h), uni((e, h, inter), h)
+    wd = uni((e, inter, h), inter)
+    if route == "one":
+        ids = torch.full((n, k), 3, dtype=torch.int64, device="cuda")
+        probs = torch.ones((n, k), device="cuda")
+    else:
+        live = e if route == "router" else max(e // 8, k)
+        wr = _rand((h, live), torch.bfloat16, gen) * h ** -0.5
+        scores = torch.softmax((x.to(torch.bfloat16) @ wr).float(), dim=-1)
+        ids = top_k_indices(scores, k)
+        probs = torch.gather(scores, 1, ids)
+        probs = probs / (probs.sum(-1, keepdim=True) + 1e-20)
+    return x, (wg, wu, wd), probs, sort_tokens_by_expert(ids, e)
+
+
+def _moe_work(kernel, n, k, h, inter, meta, sort, dtype):
+    """Operations and bytes each MoE kernel's work needs on this data: the
+    real pairs' three products (6 M h i flops), the weights of the experts
+    that got a row, read once, the rows in and the output out once."""
+    el = torch.empty((), dtype=dtype).element_size()
+    m = n * k
+    used = int((sort.group_sizes > 0).sum())
+    weights = 3 * used * h * inter * el
+    idx = meta.pair_src.numel() * 4 + meta.gid.numel() * 4
+    if kernel == "moe_ffn_aligned":
+        nbytes = weights + 2 * meta.m_pad * h * el + meta.m_pad * 4 + idx
+    elif kernel == "moe_ffn_gather":
+        nbytes = weights + n * h * el + m * 4 + meta.m_pad * h * el + idx
+    else:
+        nbytes = weights + n * h * el + m * 4 + n * h * el + idx
+    flops = 6.0 * m * h * inter
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    by_ops, by_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def check_moe_ffn(gen):
+    """The three MoE FFN kernels against their plain versions, fp32 and
+    bf16, at Qwen3-30B-A3B widths (h 2048, i 768, 128 experts, top-8) and
+    at edge cases; timed at one training microbatch (4096 tokens)."""
+    from d9d_tpu_torch.ops import moe_ffn as mf
+
+    cases = []
+    worst = {n_: {torch.float32: 0.0, torch.bfloat16: 0.0}
+             for n_ in MOE_KERNELS}
+    worst_use = dict.fromkeys(MOE_KERNELS, 0.0)
+
+    def run_all(dtype, x, w, probs, sort, e):
+        n, k = probs.shape
+        bm = mf.kernel_block_m(dtype, x.shape[1], w[0].shape[2])
+        meta = mf.aligned_metadata(sort, e, bm)
+        pf = probs.reshape(-1).float().contiguous()
+        a, pa = mf._gathered_rows(x, pf, meta.pair_src, k)
+        a, pa = a.contiguous(), pa.contiguous()
+        args = {
+            "moe_ffn_aligned": ((a, pa, meta.gid, meta.pair_src, *w), {}),
+            "moe_ffn_gather": ((x, pf, meta.gid, meta.pair_src, *w),
+                               {"top_k": k}),
+            "moe_ffn_gather_combine": ((x, pf, meta.gid, meta.pair_src, *w),
+                                       {"top_k": k}),
+        }
+        fns = {"moe_ffn_aligned": (mf.moe_ffn_aligned,
+                                   mf.moe_ffn_aligned_plain),
+               "moe_ffn_gather": (mf.moe_ffn_gather, mf.moe_ffn_gather_plain),
+               "moe_ffn_gather_combine": (mf.moe_ffn_gather_combine,
+                                          mf.moe_ffn_gather_combine_plain)}
+        return meta, args, fns
+
+    def compare(tag, dtype, n, k, e, h, inter, route="router"):
+        x, w, probs, sort = _moe_problem(gen, dtype, n, k, e, h, inter, route)
+        meta, args, fns = run_all(dtype, x, w, probs, sort, e)
+        row = {"case": tag, "dtype": str(dtype).split(".")[-1],
+               "shape": {"N": n, "K": k, "E": e, "h": h, "i": inter,
+                         "block_m": meta.pair_src.numel() // meta.gid.numel(),
+                         "m_pad": meta.m_pad,
+                         "tiles": meta.gid.numel(),
+                         "all_pad_tiles": int(
+                             (meta.pair_src[::meta.pair_src.numel()
+                                            // meta.gid.numel()] < 0).sum()),
+                         "empty_experts": int((sort.group_sizes == 0).sum())}}
+        outs = {}
+        for name in MOE_KERNELS:
+            kern, plain = fns[name]
+            pos, kw = args[name]
+            got = kern(*pos, **kw)
+            torch.cuda.synchronize()
+            want = plain(*pos, **kw)
+            err = max_err(got, want)
+            use = moe_tolerance_use(got, want, dtype)
+            finite = bool(torch.isfinite(got.float()).all())
+            if not finite or use > 1.0:
+                raise AssertionError(
+                    f"{name} {tag} {dtype}: max_abs_err {err} uses {use} of "
+                    f"its tolerance (finite: {finite})")
+            worst[name][dtype] = max(worst[name][dtype], err)
+            worst_use[name] = max(worst_use[name], use)
+            row[name] = {"max_abs_err": err, "tolerance_use": use}
+            outs[name] = want
+        # the three agree on the combined output too
+        n_, k_ = probs.shape
+        for name in ("moe_ffn_aligned", "moe_ffn_gather"):
+            comb = outs[name].index_select(0, meta.dest_aligned).reshape(
+                n_, k_, -1).float().sum(1)
+            use = moe_tolerance_use(comb.to(dtype),
+                                    outs["moe_ffn_gather_combine"], dtype)
+            row[f"{name}_combined_vs_combine_kernel"] = use
+        cases.append(row)
+        return x, w, probs, sort, meta, args, fns
+
+    # edge cases at full widths, small token counts; one at the example's
+    # widths (pretrain.json: h = i = 128, 16 experts, top-2)
+    for dtype in (torch.bfloat16, torch.float32):
+        compare("router", dtype, 512, 8, 128, 2048, 768)
+        compare("empty_experts", dtype, 256, 8, 128, 2048, 768, route="subset")
+        compare("one_expert", dtype, 256, 1, 128, 2048, 768, route="one")
+        compare("nk_not_multiple_of_block_m", dtype, 100, 3, 16, 2048, 768)
+        compare("example_widths", dtype, 1024, 2, 16, 128, 128)
+    compare("timed_fp32", torch.float32, 4096, 8, 128, 2048, 768)
+    x, w, probs, sort, meta, args, fns = compare(
+        "timed", torch.bfloat16, 4096, 8, 128, 2048, 768)
+    n, k = probs.shape
+    e, h, inter = w[0].shape
+
+    # negative controls on the aligned kernel's plain output, timed shape
+    pos, _ = args["moe_ffn_aligned"]
+    want = mf.moe_ffn_aligned_plain(*pos)
+    bm = meta.pair_src.numel() // meta.gid.numel()
+    dropped = want.clone()
+    dropped[:bm] = 0
+    gid_wrong = meta.gid.clone()
+    gid_wrong[0] = (gid_wrong[0] + 1) % e
+    wrong = mf.moe_ffn_aligned_plain(pos[0], pos[1], gid_wrong, *pos[3:])
+    wg, wu, wd = w
+    lost = mf.moe_ffn_aligned_plain(
+        *pos[:4], wg, wu, torch.cat([torch.zeros_like(wd[:, :64]),
+                                     wd[:, 64:]], dim=1))
+    first = slice(0, bm)
+    controls = {
+        "dropped_tile": moe_tolerance_use(dropped[first], want[first],
+                                          torch.bfloat16),
+        "wrong_expert": moe_tolerance_use(wrong[first], want[first],
+                                          torch.bfloat16),
+        "lost_i_chunk": moe_tolerance_use(lost, want, torch.bfloat16),
+    }
+    if min(controls.values()) <= 1.0:
+        raise AssertionError(f"a negative control passes the rule: {controls}")
+
+    kernels = []
+    timed = {}
+    for name in MOE_KERNELS:
+        kern, plain = fns[name]
+        pos, kw = args[name]
+        ms = time_ms(lambda: kern(*pos, **kw), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: plain(*pos, **kw), iters=2, warmup=1)
+        work = _moe_work(name, n, k, h, inter, meta, sort, torch.bfloat16)
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, **work}
+    chain_ms, chain_info = _moe_library_chain(x, w, probs, sort)
+    for name, line in (("moe_ffn_aligned", 371), ("moe_ffn_gather", 438),
+                       ("moe_ffn_gather_combine", 475)):
+        t = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "d9d_tpu_torch/csrc/moe_ffn.cu",
+            "replaces": f"d9d_tpu/ops/moe_pallas.py:{line}",
+            "max_abs_err": worst[name][torch.bfloat16],
+            "max_abs_err_fp32": worst[name][torch.float32],
+            "tolerance_use": worst_use[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_chain_ms": chain_ms,
+        })
+    return kernels, {
+        "cases": cases, "tolerance": MOE_TOLERANCE,
+        "negative_controls": controls,
+        "timed_shape": {"N": n, "K": k, "E": e, "h": h, "i": inter,
+                        "dtype": "bfloat16", "m_pad": meta.m_pad,
+                        "pairs": n * k,
+                        "experts_used": int((sort.group_sizes > 0).sum())},
+        "ms_is": "the wrapper: aligned on a prepared aligned buffer; "
+                 "gather_combine includes its fp32 zero fill and cast",
+        "library_ms_is": "null: no single PyTorch call computes a grouped "
+                         "SwiGLU FFN",
+        "library_chain": chain_info,
+        "bound_from": {n_: {"flops": timed[n_]["flops"],
+                            "bytes": timed[n_]["bytes"]}
+                       for n_ in MOE_KERNELS},
+    }
+
+
+def _moe_library_chain(x, w, probs, sort):
+    """Yardstick only (the port never calls it): the same function through
+    a chain of library calls on expert-sorted rows — three
+    ``torch._grouped_mm`` in bf16, ``silu`` times up, the prob scale.
+    Returns (ms, description); ms is None if the call is refused here."""
+    import torch.nn.functional as F
+
+    from d9d_tpu_torch.ops.moe import permute_tokens
+
+    xs, ps = permute_tokens(x, probs, sort)
+    offs = torch.cumsum(sort.group_sizes, 0).to(torch.int32)
+    wg, wu, wd = w
+
+    def chain():
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        u = torch._grouped_mm(xs, wu, offs=offs)
+        y = torch._grouped_mm(F.silu(g) * u, wd, offs=offs)
+        return y * ps[:, None].to(y.dtype)
+
+    info = {"is": "chain of library calls, not one call: torch._grouped_mm "
+                  "(gate), (up), silu*up, torch._grouped_mm (down), * probs; "
+                  "bf16, on expert-sorted rows (permute not timed)"}
+    try:
+        chain()
+    except (RuntimeError, NotImplementedError) as exc:  # yardstick only
+        info["refused"] = str(exc)[:200]
+        return None, info
+    return time_ms(chain, iters=10, warmup=2), info
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1, detail1 = check_flash_fwd(gen)
@@ -635,7 +915,10 @@ def phase_kernels():
     bwd, detail3 = check_flash_bwd(gen)
     say(phase="kernels", kernel="flash_bwd", **detail3)
     torch.cuda.empty_cache()
-    return [k1, k2, *bwd]
+    moe, detail4 = check_moe_ffn(gen)
+    say(phase="kernels", kernel="moe_ffn", **detail4)
+    torch.cuda.empty_cache()
+    return [k1, k2, *bwd, *moe]
 
 
 # ---------------------------------------------------------------------------
@@ -643,7 +926,15 @@ def phase_kernels():
 
 
 KERNEL_NAMES = ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
-                "flash_bwd_fused")
+                "flash_bwd_fused") + MOE_KERNELS
+
+
+def _moe_wrappers():
+    from d9d_tpu_torch.ops import moe_ffn as mf
+
+    return {"moe_ffn_aligned": mf.moe_ffn_aligned,
+            "moe_ffn_gather": mf.moe_ffn_gather,
+            "moe_ffn_gather_combine": mf.moe_ffn_gather_combine}
 
 
 def reset_counters(model=None):
@@ -652,39 +943,50 @@ def reset_counters(model=None):
         flash_attention,
         flash_attention_bwd,
     )
+    from d9d_tpu_torch.ops.moe import group_sizes_on_host
 
-    for fn in (flash_attention, flash_decode):
+    for fn in (flash_attention, flash_decode, *_moe_wrappers().values()):
         fn.launches = 0
         fn.plain_calls = 0
     for name in ("dq_launches", "dkv_launches", "fused_launches",
                  "plain_calls"):
         setattr(flash_attention_bwd, name, 0)
+    group_sizes_on_host.readbacks = 0
     if model is not None:
         model.sdpa.eager_calls = 0
 
 
 def read_counters(model):
+    """Kernel launches by name, the plain-version and eager calls (0 on a
+    card path), and the MoE backward's group-size readbacks."""
     from d9d_tpu_torch.ops.attention.decode import flash_decode
     from d9d_tpu_torch.ops.attention.flash import (
         flash_attention,
         flash_attention_bwd,
     )
+    from d9d_tpu_torch.ops.moe import group_sizes_on_host
 
-    return {
+    moe = _moe_wrappers()
+    out = {
         "flash_fwd": flash_attention.launches,
         "flash_decode": flash_decode.launches,
         "flash_bwd_dq": flash_attention_bwd.dq_launches,
         "flash_bwd_dkv": flash_attention_bwd.dkv_launches,
         "flash_bwd_fused": flash_attention_bwd.fused_launches,
-        "plain_calls": flash_attention.plain_calls + flash_decode.plain_calls
-        + flash_attention_bwd.plain_calls,
-        "eager_calls": model.sdpa.eager_calls,
     }
+    out.update({name: fn.launches for name, fn in moe.items()})
+    out["plain_calls"] = (flash_attention.plain_calls + flash_decode.plain_calls
+                          + flash_attention_bwd.plain_calls
+                          + sum(fn.plain_calls for fn in moe.values()))
+    out["eager_calls"] = model.sdpa.eager_calls
+    out["moe_readbacks"] = group_sizes_on_host.readbacks
+    return out
 
 
 def counts(**launches):
     """A counter dict: the given launches, every other count 0."""
-    out = dict.fromkeys(KERNEL_NAMES + ("plain_calls", "eager_calls"), 0)
+    out = dict.fromkeys(
+        KERNEL_NAMES + ("plain_calls", "eager_calls", "moe_readbacks"), 0)
     out.update(launches)
     return out
 
@@ -1204,6 +1506,223 @@ def phase_full_width_train():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Qwen3-MoE training: small end-to-end agreement, then full width
+
+
+def _moe_provider(cfg, dtype, moe_ffn, state=None, seed=0):
+    from d9d_tpu_torch.loop import ModelProvider
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM
+
+    class Provider(ModelProvider):
+        """The MoE model on the context's device; weights from ``state``
+        when given, else drawn from ``seed`` on that device."""
+
+        def build_module(self, ctx):
+            model = Qwen3MoeCausalLM(
+                cfg, moe_ffn=moe_ffn, dtype=dtype, param_dtype=torch.float32,
+                device=ctx.device, seed=None if state is not None else seed)
+            if state is not None:
+                model.load_state_dict(state)
+            return model
+
+    return Provider()
+
+
+def phase_small_e2e_train_moe():
+    """3 Trainer steps of a narrow fp32 Qwen3-MoE model on the card (flash
+    and MoE kernels) and on the CPU (their plain versions), from the same
+    weights and batches, once for each moe_ffn value."""
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, schedule = _train_parts()
+    cfg = Qwen3MoeConfig(
+        vocab_ranges=(("default", 1024),), hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, moe_intermediate_size=128,
+        num_experts=8, num_experts_per_tok=2,
+    )
+    state = Qwen3MoeCausalLM(cfg, dtype=torch.float32,
+                             param_dtype=torch.float32, device="cpu",
+                             seed=7).state_dict()
+    data = _Batches(1024, 3, 4, 128, seed=21, loss_mask=True)
+
+    def run(device, moe_ffn):
+        trainer = Trainer(
+            ctx=MeshParameters().build([device]),
+            config=TrainerConfig(global_batch_size=4, microbatch_size=2,
+                                 seq_len=128, total_steps=3, log_every=1,
+                                 max_grad_norm=1.0),
+            model_provider=_moe_provider(cfg, torch.float32, moe_ffn,
+                                         state=state),
+            dataset_provider=data, task=CausalLMTask(),
+            optimizer_provider=AdamWProvider(weight_decay=0.1),
+            learning_rate=schedule(1e-3, 3))
+        reset_counters(trainer.module)
+        hist = trainer.train()
+        torch.cuda.synchronize()
+        return hist, read_counters(trainer.module)
+
+    tol = 1e-4  # fp32 on both sides; products and sums in other orders
+    keys = ("loss", "grad_norm", "task/moe_load_max_frac")
+    host, _ = run("cpu", "aligned")
+    out = {}
+    for moe_ffn in ("aligned", "gather", "gather_combine"):
+        card, on_card = run("cuda", moe_ffn)
+        # 2 layers x 2 microbatches x 3 steps; the forward runs twice (remat)
+        want = counts(flash_fwd=24, flash_bwd_dq=12, flash_bwd_dkv=12,
+                      moe_readbacks=12, **{f"moe_ffn_{moe_ffn}": 24})
+        if on_card != want:
+            raise AssertionError(
+                f"small MoE train {moe_ffn}: counters {on_card}, "
+                f"expected {want}")
+        rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                      for a, b in zip(card, host)) for k in keys}
+        if max(rel.values()) > tol:
+            raise AssertionError(
+                f"small MoE train {moe_ffn}: card vs CPU {rel} "
+                f"(tolerance {tol})")
+        out[moe_ffn] = {"card": [{k: h[k] for k in ("step",) + keys}
+                                 for h in card],
+                        "max_rel_diff_card_vs_cpu": rel, "counters": on_card}
+    say(phase="small_e2e_train_moe", steps=3, tolerance=tol,
+        cpu=[{k: h[k] for k in ("step",) + keys} for h in host], **out)
+
+
+def phase_full_width_train_moe():
+    """Qwen3-30B-A3B widths at 4 of 48 layers through Trainer.train: 6 steps
+    with the aligned expert-FFN kernel, a profiled step, then 2 steps each
+    of fresh trainers (same seed) with the gather and gather+combine
+    kernels."""
+    import dataclasses
+    import gc
+    import math
+    import statistics
+
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeConfig
+
+    _, schedule = _train_parts()
+    layers = 4  # of 48: fp32 params + grads + two Adam moments, 16 B/param
+    cfg = dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(),
+                              num_layers=layers)
+    gbs, mbs, seq, steps = 4, 2, 2048, 6
+    data = _Batches(cfg.vocab_size, steps + 2, gbs, seq, seed=5)
+    per_call = layers * (gbs // mbs)  # layer calls per step
+
+    def trainer_for(moe_ffn, total):
+        return Trainer(
+            ctx=MeshParameters().build(),
+            config=TrainerConfig(global_batch_size=gbs, microbatch_size=mbs,
+                                 seq_len=seq, total_steps=total, log_every=1,
+                                 max_grad_norm=1.0),
+            model_provider=_moe_provider(cfg, torch.bfloat16, moe_ffn, seed=0),
+            dataset_provider=data, task=CausalLMTask(),
+            optimizer_provider=AdamWProvider(weight_decay=0.1),
+            learning_rate=schedule(3e-4, total))
+
+    def check(tag, moe_ffn, hist, got, n_steps):
+        n = per_call * n_steps
+        want = counts(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                      moe_readbacks=n, **{f"moe_ffn_{moe_ffn}": 2 * n})
+        if got != want:
+            raise AssertionError(f"{tag}: counters {got}, expected {want}")
+        vals = [h[k] for h in hist
+                for k in ("loss", "grad_norm", "task/moe_load_max_frac")]
+        if len(hist) != n_steps or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"{tag}: bad history {hist}")
+
+    def rows(hist):
+        return [{"step": h["step"], "loss": h["loss"],
+                 "grad_norm": h["grad_norm"],
+                 "moe_load_max_frac": h["task/moe_load_max_frac"]}
+                for h in hist]
+
+    t0 = time.perf_counter()
+    trainer = trainer_for("aligned", steps)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.module.parameters())
+    experts = sum(p.numel() for n_, p in trainer.module.named_parameters()
+                  if "grouped_experts" in n_)
+    say(phase="full_width_train_moe", model="qwen3_30b_a3b", layers=layers,
+        layers_reduced_from=48, params=n_params, expert_params=experts,
+        state_bytes=16 * n_params, init_seconds=time.perf_counter() - t0,
+        setup={"param_dtype": "float32", "dtype": "bfloat16",
+               "remat": cfg.remat_policy, "global_batch_size": gbs,
+               "microbatch_size": mbs, "seq_len": seq,
+               "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+               "optimizer": "AdamW wd 0.1", "warmup_steps": 2})
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(trainer.module)
+    hist = trainer.train()
+    torch.cuda.synchronize()
+    got = read_counters(trainer.module)
+    check("train_moe aligned", "aligned", hist, got, steps)
+    losses = [h["loss"] for h in hist]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: loss did not fall: {losses}")
+    walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                   for a, b in zip(hist, hist[1:])]
+    ms_step = 1e3 * statistics.median(walls[1:])
+    launches = dict(got)
+    say(phase="full_width_train_moe", entry="Trainer.train",
+        moe_ffn="aligned", steps=rows(hist), ms_per_step=ms_step,
+        ms_per_step_all=[1e3 * w for w in walls],
+        tokens_per_s=gbs * seq / (ms_step / 1e3),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), counters=got,
+        per_step={"moe_kernel_launches": got["moe_ffn_aligned"] / steps,
+                  "moe_readbacks": got["moe_readbacks"] / steps})
+    say(phase="profile", **profile_train_step(trainer, data.batches[steps]))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tol = 1e-3  # bf16: the combine kernel rounds a token's K-sum once
+    for moe_ffn in ("gather", "gather_combine"):
+        trainer = trainer_for(moe_ffn, 2)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(trainer.module)
+        vhist = trainer.train()
+        torch.cuda.synchronize()
+        got = read_counters(trainer.module)
+        check(f"train_moe {moe_ffn}", moe_ffn, vhist, got, 2)
+        if not vhist[-1]["loss"] < vhist[0]["loss"]:
+            raise AssertionError(
+                f"train_moe {moe_ffn}: loss did not fall: {rows(vhist)}")
+        rel = {k: abs(vhist[0][k] - hist[0][k]) / abs(hist[0][k])
+               for k in ("loss", "grad_norm")}
+        if max(rel.values()) > tol:
+            raise AssertionError(
+                f"train_moe {moe_ffn}: step 1 vs aligned {rel} "
+                f"(tolerance {tol})")
+        say(phase="full_width_train_moe", entry="Trainer.train",
+            moe_ffn=moe_ffn, steps=rows(vhist),
+            step1_vs_aligned=rel, tolerance=tol,
+            ms_per_step_all=[1e3 * vhist[0]["wall_s"],
+                             1e3 * (vhist[1]["wall_s"] - vhist[0]["wall_s"])],
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            counters=got)
+        for name, n in got.items():
+            launches[name] += n
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import gc
 
@@ -1213,11 +1732,15 @@ def main():
     kernels = phase_kernels()
     phase_small_e2e()
     phase_small_e2e_train()
+    phase_small_e2e_train_moe()
     launches = phase_full_width()
     gc.collect()
     torch.cuda.empty_cache()
-    for name, n in phase_full_width_train().items():
-        launches[name] += n
+    for phase in (phase_full_width_train, phase_full_width_train_moe):
+        for name, n in phase().items():
+            launches[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

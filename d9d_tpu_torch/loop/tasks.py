@@ -6,6 +6,7 @@ import torch
 from torch import nn
 
 from d9d_tpu_torch.loop.control.task import TrainTask
+from d9d_tpu_torch.nn.moe import collect_tokens_per_expert
 from d9d_tpu_torch.ops.linear_ce import LM_IGNORE_INDEX
 
 
@@ -16,6 +17,13 @@ class CausalLMTask(TrainTask):
     [B, T+1]``); the task shifts them itself. Labels whose ``loss_mask`` is
     0 become -100 and weigh nothing. The model maps ``(tokens, positions,
     labels)`` to a per-token loss ``[B, T]``.
+
+    For a model with MoE layers the statistics also hold
+    ``moe_tokens_per_expert``: the per-expert routed-pair counts of the
+    forward, summed over layers, fp32 ``[E]`` (the engine sums them over
+    microbatches); :meth:`metrics_postprocess` turns the step's vector into
+    ``task/moe_load_max_frac``, the heaviest expert's share of the routed
+    pairs (1/E is perfectly balanced). A dense model has no such metric.
     """
 
     def prepare_batch(self, batch: dict) -> dict:
@@ -32,6 +40,21 @@ class CausalLMTask(TrainTask):
                 "positions": positions}
 
     def loss_fn(self, module: nn.Module, mb: dict[str, torch.Tensor]):
-        per_token = module(mb["tokens"], mb["positions"], mb["labels"])
+        # the window covers this forward only: a remat recomputation in the
+        # backward is not counted again
+        with collect_tokens_per_expert(module) as counts:
+            per_token = module(mb["tokens"], mb["positions"], mb["labels"])
         weight = (mb["labels"] != LM_IGNORE_INDEX).sum().to(torch.float32)
-        return per_token.sum(), weight, {"tokens": weight}
+        metrics = {"tokens": weight}
+        if counts:
+            metrics["moe_tokens_per_expert"] = torch.stack(counts).sum(
+                dim=0).to(torch.float32)
+        return per_token.sum(), weight, metrics
+
+    def metrics_postprocess(self, metrics):
+        counts = metrics.pop("task/moe_tokens_per_expert", None)
+        if counts is not None:
+            counts = np.asarray(counts, np.float64)
+            metrics["task/moe_load_max_frac"] = float(
+                counts.max() / max(counts.sum(), 1.0))
+        return metrics

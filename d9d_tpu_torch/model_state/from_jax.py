@@ -6,7 +6,11 @@ np.ndarray, ...}`` (path components joined with ``/``) and fills the
 parameters of the port's counterpart module (a whole
 ``Qwen3DenseCausalLM`` or any block of it):
 
-- a Dense ``kernel [in, out]`` becomes a ``weight [out, in]`` (transposed);
+- a Dense ``kernel [in, out]`` becomes a ``weight [out, in]`` (transposed)
+  — the MoE router's ``gate`` and the shared expert's projections too;
+- the expert stacks ``gate_proj``, ``up_proj`` ``[E, in, out]`` and
+  ``down_proj [E, inter, hidden]`` of a ``grouped_experts`` block are parameters
+  of their own (not Dense kernels) and are copied as they are;
 - the per-range vocabulary tables (``embedding_<range>`` / ``head_<range>``)
   are concatenated in range order into the single table the port holds
   (``nn/vocab_ranges.py``);

@@ -1,0 +1,291 @@
+"""Qwen3-MoE model family: config, decoder layer, backbone and causal-LM
+head (counterpart of ``d9d_tpu/models/qwen3/moe.py``).
+
+The dense family's structure with the FFN replaced by a :class:`MoELayer`
+(every layer sparse, except the ``mlp_only_layers``, which keep a dense
+SwiGLU). Single pipeline stage, local experts, training and full-sequence
+forward only. The config has the JAX dataclass's fields; those the port
+cannot honour yet raise when the model is built: GDN layers
+(``linear_attention_layers``), MLA (``mla``), expert parallelism
+(``ep_axes``, ``moe_token_axes``), remat policies other than ``"full"``,
+and KV-cache decode (``decode_max_length > 0``).
+
+``moe_ffn`` picks the fused expert-FFN kernel of every MoE layer
+(``"aligned"``, ``"gather"``, ``"gather_combine"``; ``ops/moe_ffn.py``).
+Layer ``i`` is ``model.layers[i]``, the counterpart of ``layers_{i}``.
+"""
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from d9d_tpu_torch.core.device import resolve_device
+from d9d_tpu_torch.models.qwen3.dense import _make_generator
+from d9d_tpu_torch.nn.attention import GroupedQueryAttention
+from d9d_tpu_torch.nn.embedding import TokenEmbedding
+from d9d_tpu_torch.nn.heads import LanguageModellingHead
+from d9d_tpu_torch.nn.mlp import SwiGLU
+from d9d_tpu_torch.nn.moe import MoeFfn, MoELayer, SharedExpertParameters
+from d9d_tpu_torch.nn.norm import RMSNorm
+from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
+from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
+from d9d_tpu_torch.ops import (
+    RopeScaling,
+    RopeScalingNone,
+    compute_rope_frequencies,
+    make_rope_cos_sin,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen3MoeConfig:
+    vocab_ranges: tuple[tuple[str, int], ...]
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    moe_intermediate_size: int
+    num_experts: int
+    num_experts_per_tok: int
+    # dense FFN width for layers listed in mlp_only_layers
+    intermediate_size: int = 0
+    mlp_only_layers: tuple[int, ...] = ()
+    shared_expert: Optional[SharedExpertParameters] = None
+    norm_topk_prob: bool = True
+    rope_theta: float = 1_000_000.0
+    rope_scaling: RopeScaling = RopeScalingNone()
+    qk_norm: bool = True
+    norm_eps: float = 1e-6
+    remat: bool = True
+    remat_policy: str = "full"
+    use_output_gate: bool = False
+    fused_qkv: bool = False
+    rope_fraction: float = 1.0
+    zero_centered_norms: bool = False
+    ep_axes: Optional[tuple[str, ...]] = None
+    moe_token_axes: Optional[tuple[tuple[str, ...], tuple[str, ...]]] = None
+    linear_attention_layers: tuple[int, ...] = ()
+    gdn_qk_heads: int = 0
+    gdn_v_heads: int = 0
+    gdn_head_qk_dim: int = 0
+    gdn_head_v_dim: int = 0
+    gdn_conv_size: int = 4
+    ep_capacity_factor: Optional[float] = None
+    # MLA geometry (the JAX package's MLAParameters); not ported: a config
+    # that sets it raises when the model is built
+    mla: Optional[object] = None
+    routed_scaling_factor: float = 1.0
+    router_n_group: int = 1
+    router_topk_group: int = 1
+
+    @property
+    def vocab_size(self) -> int:
+        return sum(s for _, s in self.vocab_ranges)
+
+    @staticmethod
+    def tiny(vocab_size: int = 256, ep_axes=None) -> "Qwen3MoeConfig":
+        """2-layer CPU-runnable config."""
+        return Qwen3MoeConfig(
+            vocab_ranges=(("default", vocab_size),),
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            num_kv_heads=2,
+            head_dim=16,
+            moe_intermediate_size=64,
+            num_experts=8,
+            num_experts_per_tok=2,
+            remat=False,
+            ep_axes=ep_axes,
+        )
+
+    @staticmethod
+    def qwen3_30b_a3b(vocab_size: int = 151_936,
+                      ep_axes=None) -> "Qwen3MoeConfig":
+        """Qwen3-30B-A3B geometry."""
+        return Qwen3MoeConfig(
+            vocab_ranges=(("default", vocab_size),),
+            hidden_size=2048,
+            num_layers=48,
+            num_heads=32,
+            num_kv_heads=4,
+            head_dim=128,
+            moe_intermediate_size=768,
+            num_experts=128,
+            num_experts_per_tok=8,
+            ep_axes=ep_axes,
+        )
+
+
+def _check_ported(cfg: Qwen3MoeConfig) -> None:
+    unported = {
+        "linear_attention_layers (GDN)": bool(cfg.linear_attention_layers),
+        "mla": cfg.mla is not None,
+        "ep_axes (expert parallelism, ROADMAP A4)": cfg.ep_axes is not None,
+        "moe_token_axes (expert parallelism, ROADMAP A4)":
+            cfg.moe_token_axes is not None,
+    }
+    on = [k for k, v in unported.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"Qwen3MoeConfig: {', '.join(on)} not ported yet")
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
+            f"recomputes whole layers (remat_policy='full')")
+
+
+class Qwen3MoeDecoderLayer(nn.Module):
+    """``x + attn(norm(x))`` then ``x + mlp(norm(x))`` with ``mlp`` a
+    :class:`MoELayer`, or a dense SwiGLU for the ``mlp_only_layers``."""
+
+    def __init__(
+        self,
+        config: Qwen3MoeConfig,
+        sdpa: SdpaBackend,
+        layer_idx: int,
+        *,
+        moe_ffn: MoeFfn = "aligned",
+        dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype | None = None,
+        device: "torch.device | str | None" = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        cfg = config
+        zc = cfg.zero_centered_norms
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
+                  generator=generator)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps,
+                                       zero_centered=zc, device=device)
+        self.self_attn = GroupedQueryAttention(
+            hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, sdpa=sdpa,
+            qk_norm=cfg.qk_norm, qk_norm_zero_centered=zc,
+            use_output_gate=cfg.use_output_gate, fused_qkv=cfg.fused_qkv,
+            rope_fraction=cfg.rope_fraction, **kw)
+        self.post_attention_layernorm = RMSNorm(
+            cfg.hidden_size, eps=cfg.norm_eps, zero_centered=zc, device=device)
+        if layer_idx in cfg.mlp_only_layers:
+            self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size, **kw)
+        else:
+            self.mlp = MoELayer(
+                cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
+                cfg.num_experts_per_tok,
+                router_renormalize_probabilities=cfg.norm_topk_prob,
+                shared_expert=cfg.shared_expert,
+                ep_capacity_factor=cfg.ep_capacity_factor,
+                routed_scaling=cfg.routed_scaling_factor,
+                router_n_group=cfg.router_n_group,
+                router_topk_group=cfg.router_topk_group,
+                moe_ffn=moe_ffn, **kw)
+
+    def forward(self, x, cos, sin, mask: Optional[torch.Tensor] = None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class Qwen3MoeBackbone(nn.Module):
+    def __init__(
+        self,
+        config: Qwen3MoeConfig,
+        sdpa: SdpaBackend,
+        *,
+        moe_ffn: MoeFfn = "aligned",
+        dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype | None = None,
+        device: "torch.device | str | None" = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        cfg = config
+        _check_ported(cfg)
+        self.config = cfg
+        dev = resolve_device(device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
+                  generator=generator)
+        self.embed_tokens = TokenEmbedding(cfg.vocab_ranges, cfg.hidden_size,
+                                           **kw)
+        self.layers = nn.ModuleList(
+            Qwen3MoeDecoderLayer(cfg, sdpa, i, moe_ffn=moe_ffn, **kw)
+            for i in range(cfg.num_layers))
+        self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps,
+                            zero_centered=cfg.zero_centered_norms, device=dev)
+        # partial rotary: frequencies over the rotary dim, not head_dim
+        inv_freq, att_scale = compute_rope_frequencies(
+            int(cfg.head_dim * cfg.rope_fraction), cfg.rope_theta,
+            cfg.rope_scaling, device=dev)
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
+        self.rope_attention_scale = att_scale
+
+    def forward(self, x, positions, mask: Optional[torch.Tensor] = None):
+        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``."""
+        x = self.embed_tokens(x)
+        cos, sin = make_rope_cos_sin(positions, self.inv_freq,
+                                     self.rope_attention_scale)
+        remat = self.config.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint(layer, x, cos, sin, mask, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, mask)
+        return self.norm(x)
+
+
+class Qwen3MoeCausalLM(nn.Module):
+    """Backbone + fused-CE LM head. ``forward`` with labels returns the
+    per-token loss ``[B, T]`` (training); ``logits`` never builds an
+    autograd graph. ``device=None`` means the card; ``seed`` seeds the
+    device generator the random weights come from; ``sdpa=None`` builds the
+    flash backend; ``param_dtype`` as in the dense model. Serving the MoE
+    model (``decode_max_length > 0``) is not ported yet and raises."""
+
+    def __init__(
+        self,
+        config: Qwen3MoeConfig,
+        sdpa: SdpaBackend | None = None,
+        *,
+        moe_ffn: MoeFfn = "aligned",
+        decode_max_length: int = 0,
+        ce_chunk_size: "int | str" = "auto",
+        dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype | None = None,
+        device: "torch.device | str | None" = None,
+        seed: int | None = 0,
+    ):
+        super().__init__()
+        if decode_max_length > 0:
+            raise NotImplementedError(
+                "Qwen3MoeCausalLM: KV-cache decode (serving the MoE model) "
+                "is not ported yet")
+        dev = resolve_device(device)
+        gen = _make_generator(seed, dev)
+        self.config = config
+        self.dtype = dtype
+        self.device = dev
+        self.sdpa = sdpa if sdpa is not None else build_sdpa_backend()
+        self.model = Qwen3MoeBackbone(
+            config, self.sdpa, moe_ffn=moe_ffn, dtype=dtype,
+            param_dtype=param_dtype, device=dev, generator=gen)
+        self.lm_head = LanguageModellingHead(
+            config.vocab_ranges, config.hidden_size,
+            ce_chunk_size=ce_chunk_size, dtype=dtype,
+            param_dtype=param_dtype, device=dev, generator=gen)
+
+    def forward(self, x, positions, labels: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x [B, T]`` tokens, ``positions [B, T]`` → per-token fp32 loss
+        ``[B, T]`` with ``labels``, else the final hidden state."""
+        h = self.model(x, positions, mask)
+        if labels is not None:
+            return self.lm_head(h, labels)
+        return h
+
+    @torch.no_grad()
+    def logits(self, x, positions,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.lm_head.logits(self.model(x, positions, mask))

@@ -3,15 +3,29 @@ from d9d_tpu_torch.nn.decoder import DecoderLayer
 from d9d_tpu_torch.nn.embedding import TokenEmbedding
 from d9d_tpu_torch.nn.heads import LanguageModellingHead
 from d9d_tpu_torch.nn.mlp import SwiGLU
+from d9d_tpu_torch.nn.moe import (
+    GroupedSwiGLU,
+    MoELayer,
+    SharedExpertParameters,
+    SharedSwiGLU,
+    TopKRouter,
+    collect_tokens_per_expert,
+)
 from d9d_tpu_torch.nn.norm import RMSNorm
 
 __all__ = [
     "DecodeCache",
     "DecoderLayer",
     "GroupedQueryAttention",
+    "GroupedSwiGLU",
     "LanguageModellingHead",
     "LayerKVCache",
+    "MoELayer",
     "RMSNorm",
+    "SharedExpertParameters",
+    "SharedSwiGLU",
     "SwiGLU",
     "TokenEmbedding",
+    "TopKRouter",
+    "collect_tokens_per_expert",
 ]

@@ -30,3 +30,23 @@ def lecun_normal_(
     with torch.no_grad():
         weight.copy_(draw)
     return weight
+
+
+def variance_scaling_uniform_(
+    weight: torch.Tensor,
+    scale: float,
+    fan_in: int,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """``variance_scaling(scale, "fan_in", "uniform")`` in place: uniform
+    on ``[-b, b]`` with ``b = sqrt(3 * scale / fan_in)``, i.e. variance
+    ``scale / fan_in``. flax counts every axis that is neither ``in_axis``
+    nor ``out_axis`` as receptive field, so for the expert stacks
+    ``[E, in, out]`` (``in_axis=1, out_axis=2``) the fan-in is ``E * in``.
+    Drawn in fp32, rounded into the parameter's dtype."""
+    bound = (3.0 * scale / fan_in) ** 0.5
+    draw = torch.empty(weight.shape, dtype=torch.float32, device=weight.device)
+    draw.uniform_(-bound, bound, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw)
+    return weight

@@ -74,6 +74,12 @@ _SIGNATURES = {
         _I, _I,                      # n_splits, split_len
         _P,                          # stream
     ],
+    "d9d_moe_ffn": [
+        _P, _P, _P, _P,              # a (rows or x), probs, gid, pair_src
+        _P, _P, _P, _P,              # wg, wu, wd, out
+        _I, _I, _I, _I, _I, _I,      # kernel, n_tiles, h, inter, top_k, dtype
+        _P,                          # stream
+    ],
 }
 
 # host-side queries: no launch, same int status as the launchers
@@ -82,6 +88,10 @@ _QUERIES = {
         _I, _I,                      # dtype, query rows per kv head
         ctypes.POINTER(_I),          # out: query rows per block
         ctypes.POINTER(_I),          # out: granularity of split_len
+    ],
+    "d9d_moe_ffn_tiling": [
+        _I, _I, _I,                  # dtype, h, inter
+        ctypes.POINTER(_I),          # out: rows per tile (block_m)
     ],
 }
 

@@ -11,6 +11,8 @@ import d9d_tpu_torch
 from d9d_tpu_torch.ops import kernel_lib
 from d9d_tpu_torch.ops.attention import decode as tdec
 from d9d_tpu_torch.ops.attention import flash as tflash
+from d9d_tpu_torch.ops import moe as tmoe
+from d9d_tpu_torch.ops import moe_ffn as tmf
 
 torch.set_num_threads(1)
 
@@ -78,10 +80,14 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/loop/components/stepper.py",
         "d9d_tpu_torch/tracker/base.py",
         "d9d_tpu_torch/tracker/providers.py",
+        "d9d_tpu_torch/ops/moe.py",
+        "d9d_tpu_torch/ops/moe_ffn.py",
+        "d9d_tpu_torch/nn/moe.py",
+        "d9d_tpu_torch/models/qwen3/moe.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {
-        "flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu"}
+        "flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "moe_ffn.cu"}
 
 
 @pytest.mark.parametrize(
@@ -97,12 +103,13 @@ def test_no_jax_import_and_no_module_level_triton(path):
 
 
 def test_no_library_attention_or_compile_on_the_ports_path():
-    """The yardstick call lives only in chip_smoke.py."""
+    """The yardstick calls live only in chip_smoke.py."""
     for path in (ROOT / "d9d_tpu_torch").rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             name = getattr(node, "attr", None) or getattr(node, "id", None)
             assert name != "scaled_dot_product_attention", path
+            assert name != "_grouped_mm", path
             if isinstance(node, ast.Attribute) and node.attr == "compile":
                 assert getattr(node.value, "id", "") != "torch", path
 
@@ -113,6 +120,7 @@ def test_no_environment_switch_between_kernel_and_plain_version():
         assert "D9D_TPU_DECODE_ATTN" not in text, path
         assert "D9D_TPU_BACKEND_SDPA" not in text, path
         assert "D9D_TPU_FLASH_BWD" not in text, path
+        assert "D9D_TPU_MOE" not in text, path
         assert "os.environ" not in text and "getenv" not in text, path
         assert "is_available()" not in text or path.name == "device.py", path
 
@@ -165,26 +173,69 @@ def test_flash_sdpa_raises_off_the_cpu_where_it_has_no_kernel(case):
     assert sdpa.eager_calls == 1
 
 
+def _flash_check(q, k, v):
+    return lambda: tflash._check_kernel_inputs(
+        "flash_attention", {"q": q, "k": k, "v": v}, q.shape[-1])
+
+
+def _ffn_args(dtype=torch.bfloat16, h=128, inter=64, e=4, m_pad=64):
+    rows = torch.zeros(m_pad, h, dtype=dtype)
+    return dict(rows=rows, gate_w=torch.zeros(e, h, inter, dtype=dtype),
+                up_w=torch.zeros(e, h, inter, dtype=dtype),
+                down_w=torch.zeros(e, inter, h, dtype=dtype),
+                probs=torch.zeros(m_pad), gid=torch.zeros(1, dtype=torch.int32),
+                pair_src=torch.zeros(m_pad, dtype=torch.int32))
+
+
+def _ffn_check(**change):
+    args = _ffn_args(**{k: change.pop(k) for k in ("dtype", "h", "inter")
+                        if k in change})
+    for key, fn in change.items():
+        args[key] = fn(args[key])
+    return lambda: tmf.check_ffn_inputs("moe_ffn_gather", **args)
+
+
 @pytest.mark.parametrize(
     "make,exc,match",
     [
-        (lambda: _qkv("cpu", torch.float16), TypeError, "not supported"),
-        (lambda: _qkv("cpu", torch.float64), TypeError, "not supported"),
-        (lambda: _qkv("cpu", d=32), ValueError, "head_dim 32"),
-        (lambda: tuple(x.requires_grad_() for x in _qkv("cpu")),
+        (lambda: _flash_check(*_qkv("cpu", torch.float16)), TypeError,
+         "not supported"),
+        (lambda: _flash_check(*_qkv("cpu", torch.float64)), TypeError,
+         "not supported"),
+        (lambda: _flash_check(*_qkv("cpu", d=32)), ValueError, "head_dim 32"),
+        (lambda: _flash_check(*(x.requires_grad_() for x in _qkv("cpu"))),
          RuntimeError, "requires grad .* detached"),
-        (lambda: tuple(x[..., ::2] for x in _qkv("cpu", d=128)),
+        (lambda: _flash_check(*(x[..., ::2] for x in _qkv("cpu", d=128))),
          ValueError, "contiguous head_dim"),
-        (lambda: (_qkv("cpu")[0], _qkv("cpu")[1].bfloat16(), _qkv("cpu")[2]),
+        (lambda: _flash_check(_qkv("cpu")[0], _qkv("cpu")[1].bfloat16(),
+                              _qkv("cpu")[2]),
          TypeError, "has dtype"),
+        (lambda: _ffn_check(dtype=torch.float16), TypeError, "not supported"),
+        (lambda: _ffn_check(h=96), ValueError, "multiples of 64"),
+        (lambda: _ffn_check(inter=80), ValueError, "multiples of 64"),
+        (lambda: _ffn_check(down_w=lambda w: w.float()), TypeError,
+         "down_w has dtype"),
+        (lambda: _ffn_check(gate_w=lambda w: w.transpose(1, 2).contiguous()),
+         ValueError, "bad shapes"),
+        (lambda: _ffn_check(probs=lambda p: p.bfloat16()), TypeError,
+         "probs has dtype"),
+        (lambda: _ffn_check(pair_src=lambda p: p.long()), TypeError,
+         "pair_src has dtype"),
+        (lambda: _ffn_check(up_w=lambda w: w.transpose(1, 2).contiguous()
+                            .transpose(1, 2)),
+         ValueError, "up_w must be contiguous"),
+        (lambda: _ffn_check(rows=lambda r: r.requires_grad_()), RuntimeError,
+         "requires grad .* FusedMoEFFN"),
     ],
-    ids=["fp16", "fp64", "head_dim", "requires_grad", "strided", "mixed"],
+    ids=["fp16", "fp64", "head_dim", "requires_grad", "strided", "mixed",
+         "moe_fp16", "moe_hidden_width", "moe_inter_width", "moe_mixed",
+         "moe_weight_layout", "moe_probs_dtype", "moe_index_dtype",
+         "moe_strided", "moe_requires_grad"],
 )
 def test_kernel_input_checks_raise(make, exc, match):
-    q, k, v = make()
+    check = make()
     with pytest.raises(exc, match=match):
-        tflash._check_kernel_inputs(
-            "flash_attention", {"q": q, "k": k, "v": v}, q.shape[-1])
+        check()
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_it():
@@ -209,7 +260,8 @@ def test_kernel_library_is_keyed_by_its_sources_and_never_built_on_import():
         kernel_lib.check_launch(700, "flash_attention")
     kernel_lib.check_launch(0, "flash_attention")
     for name, argtypes in kernel_lib._SIGNATURES.items():
-        assert name.startswith("d9d_flash_") and len(argtypes) > 20
+        assert (name.startswith("d9d_flash_") and len(argtypes) > 20
+                or name == "d9d_moe_ffn" and len(argtypes) == 15)
 
 
 def test_flash_bwd_wrapper_raises_for_a_non_cpu_non_cuda_tensor():
@@ -221,3 +273,31 @@ def test_flash_bwd_wrapper_raises_for_a_non_cpu_non_cuda_tensor():
         with pytest.raises(RuntimeError, match="no kernel for device meta"):
             tflash.flash_attention_bwd(q, k, v, q, lse, lse, fused=fused)
     assert [getattr(tflash.flash_attention_bwd, n) for n in names] == before
+
+
+def test_moe_ffn_raises_for_a_non_cpu_non_cuda_tensor():
+    """Meta-device inputs to fused_moe_ffn_apply and to each MoE kernel
+    wrapper raise, and neither a plain version nor a launch runs."""
+    e, k, n, h = 4, 2, 8, 64
+    ids = torch.randint(0, e, (n, k), device="meta")
+    sort = tmoe.sort_tokens_by_expert(ids, e)
+    x = torch.zeros(n, h, device="meta")
+    probs = torch.zeros(n, k, device="meta")
+    w = [torch.zeros(e, h, h, device="meta") for _ in range(3)]
+    fns = (tmf.moe_ffn_aligned, tmf.moe_ffn_gather, tmf.moe_ffn_gather_combine)
+    before = [(f.plain_calls, f.launches) for f in fns]
+    for gather, combine in tmf.MOE_FFN_VARIANTS.values():
+        with pytest.raises(RuntimeError, match="no kernel for device meta"):
+            tmf.fused_moe_ffn_apply(x, probs, sort, *w, torch.float32,
+                                    num_experts=e, gather=gather,
+                                    combine=combine)
+    gid = torch.zeros(2, dtype=torch.int32, device="meta")
+    pair_src = torch.zeros(32, dtype=torch.int32, device="meta")
+    pf = probs.reshape(-1)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        tmf.moe_ffn_aligned(torch.zeros(32, h, device="meta"),
+                            torch.zeros(32, device="meta"), gid, pair_src, *w)
+    for fn in fns[1:]:
+        with pytest.raises(RuntimeError, match="no kernel for device meta"):
+            fn(x, pf, gid, pair_src, *w, top_k=k)
+    assert [(f.plain_calls, f.launches) for f in fns] == before
