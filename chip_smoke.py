@@ -14,21 +14,29 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    (bf16 and fp32, at the main paths' shapes), time kernel, plain version
    and one library call that computes the same function (a yardstick only —
    the port never calls it), and compute the card's least time for the work:
-   the flash forward and decode kernels, the three flash backward kernels
+   the flash forward and decode kernels, the paged decode kernel (bf16,
+   fp32 and int8 pools, shuffled and shared page tables, pages of 4, 8 and
+   16, with a lost-page negative control), the three flash backward kernels
    (dq, dk/dv, fused) and the three MoE expert-FFN kernels (aligned, gather,
    gather+combine), the last two families with negative controls for their
    bf16 rules; the flash kernels also at Qwen3-30B-A3B's GQA group (g = 8);
 4. small end-to-end agreement — serving: a narrow fp32 model on the card
    (through the kernels) against the same weights on the CPU (through the
    plain versions): greedy tokens identical, logits within tolerance; the
-   batcher against ``generate`` on the card. Training: 3 ``Trainer`` steps
+   batcher against ``generate`` on the card; the paged batcher (fp32 and
+   int8 pools, prefix hits) on the card against the CPU. Training: 3 ``Trainer`` steps
    of a narrow fp32 model on the card against 3 on the CPU, loss and grad
    norm per step within tolerance, and a step with the fused backward
    against the split one; the same for a narrow fp32 Qwen3-MoE model, once
    for each expert-FFN kernel;
 5. full width, serving — Qwen3-8B (36 layers, random seeded bf16 weights):
    ``generate`` on a ragged batch with chunked prefill, then a
-   ``ContinuousBatcher`` that drains 12 requests;
+   ``ContinuousBatcher`` that drains 12 requests; then paged serving on the
+   same weights: 12 requests (prompts 16–512 tokens, 6 sharing a 256-token
+   prefix) through the contiguous batcher and through
+   ``ContinuousBatcher(page_size=16, prefix_cache=True)`` with bf16 and with
+   int8 pools — tokens/s, prefix hits, pages in use, KV bytes per request,
+   and the share of greedy tokens equal to the contiguous batcher's;
 6. full width, training — Qwen3-8B widths at 8 of its 36 layers (fp32
    parameters, bf16 compute, full remat, AdamW): 6 ``Trainer.train`` steps
    with the split backward, a profiled step, then 2 steps of a fresh trainer
@@ -361,6 +369,183 @@ def check_flash_decode(gen):
                         "D": d, "dtype": "bfloat16", "kv_valid": True,
                         "start": start.tolist()},
         "bound_from": {"flops": flops, "bytes": nbytes},
+    }
+
+
+# The paged decode kernel (B9) is held to the decode rule above, by the dtype
+# of q and o. Its int8 pools add no term: kernel and plain version widen the
+# same int8 value times the same f32 scale in one fp32 multiply, so the scale
+# is folded into identical inputs and only the order of sums differs, as in
+# bf16 and fp32 pools. The negative control reads one visible page of one
+# row from the garbage page instead: that must break the rule many times over.
+PAGED_LOST_PAGE_MIN_USE = 10.0
+
+
+def _paged_pools(gen, dtype, quant, n_rows, n_pages, ps, hkv, d):
+    """Random pools [P, Hkv, ps, D] (P = n_rows * n_pages + 1, page 0 the
+    garbage page, random too) and a page table [n_rows, n_pages] that is
+    shuffled (non-monotone) and shares row 0's first quarter of pages with
+    row 3 (a prefix hit); int8 pools are quantized by the port's own rule."""
+    from d9d_tpu_torch.nn.attention import _quantize_rows
+
+    p_total = n_rows * n_pages + 1
+    k = _rand((p_total, hkv, ps, d), dtype, gen)
+    v = _rand((p_total, hkv, ps, d), dtype, gen)
+    ks = vs = None
+    if quant:
+        k, ks = _quantize_rows(k)
+        v, vs = _quantize_rows(v)
+    perm = torch.randperm(p_total - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(n_rows, n_pages).to(torch.int32)
+    if n_rows > 3:
+        table[3, : n_pages // 4] = table[0, : n_pages // 4]
+    return k, v, ks, vs, table
+
+
+def check_flash_decode_paged(gen):
+    import torch.nn.functional as F
+
+    from d9d_tpu_torch.ops.attention.decode import (
+        flash_decode_bytes,
+        flash_decode_paged,
+        flash_decode_paged_plain,
+        gather_pages_heads_major,
+        gather_pages_heads_major_quant,
+    )
+    from d9d_tpu_torch.ops.attention.flash import apply_sinks
+
+    b, hq, hkv, s_len, d = 8, 32, 8, 4096, 128
+    cases = []
+    worst = {}
+
+    def spread(t):
+        start = torch.linspace(0, s_len - t, b, device="cuda").to(torch.int32)
+        start[0] = 2048  # no row at slot 0: every row sees a few pages
+        return start
+
+    def compare(tag, dtype, quant, t, ps, start, window=None, sinks=None):
+        q = _rand((b, t, hq, d), dtype, gen)
+        k, v, ks, vs, table = _paged_pools(gen, dtype, quant, b,
+                                           s_len // ps, ps, hkv, d)
+        kw = dict(start=start, page_table=table, k_scale=ks, v_scale=vs,
+                  window_size=window)
+        o, lse = flash_decode_paged(q, k, v, **kw)
+        torch.cuda.synchronize()
+        op, lsep = flash_decode_paged_plain(q, k, v, **kw)
+        if sinks is not None:
+            o, lse = apply_sinks(o, lse, sinks)
+            op, lsep = apply_sinks(op, lsep, sinks)
+        err, lerr = max_err(o, op), max_err(lse, lsep)
+        use = tolerance_use(o, op, dtype)
+        if not (torch.isfinite(o.float()).all() and use <= 1.0
+                and lerr <= LSE_TOL):
+            raise AssertionError(
+                f"flash_decode_paged {tag} {dtype} int8={quant}: max_abs_err "
+                f"{err} uses {use} of its tolerance, lse err {lerr} (limit "
+                f"{LSE_TOL})")
+        pools = "int8" if quant else str(dtype).split(".")[-1]
+        worst[pools] = max(worst.get(pools, 0.0), err)
+        cases.append({"case": tag, "dtype": str(dtype).split(".")[-1],
+                      "pools": pools, "page_size": ps,
+                      "shape": [b, t, hq, hkv, s_len, d], "max_abs_err": err,
+                      "tolerance_use": use, "lse_err": lerr})
+        return q, k, v, ks, vs, table, o
+
+    lost = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for quant in (False, True):
+            compare("step_ps16", dtype, quant, 1, 16, spread(1))
+            compare("step_ps8", dtype, quant, 1, 8, spread(1))
+            compare("step_ps4", dtype, quant, 1, 4, spread(1))
+            compare("window1024", dtype, quant, 1, 16, spread(1),
+                    window=1024)
+            compare("chunk4_sinks", dtype, quant, 4, 16, spread(4),
+                    sinks=torch.randn(hq, device="cuda", generator=gen))
+            # negative control: row 0 reads one of its visible pages from
+            # the garbage page in the plain version
+            start = spread(1)
+            q, k, v, ks, vs, table, o = compare(
+                "lost_page_base", dtype, quant, 1, 16, start)
+            bad = table.clone()
+            bad[0, 5] = 0
+            op, _ = flash_decode_paged_plain(
+                q, k, v, start=start, page_table=bad, k_scale=ks, v_scale=vs)
+            use = tolerance_use(o, op, dtype)
+            pools = "int8" if quant else str(dtype).split(".")[-1]
+            lost[f"{str(dtype).split('.')[-1]}_{pools}"] = use
+            if use < PAGED_LOST_PAGE_MIN_USE:
+                raise AssertionError(
+                    f"flash_decode_paged lost-page control {dtype} "
+                    f"int8={quant}: uses only {use} of the tolerance")
+
+    # timed: the serving path's call, bf16 and int8 pools of page 16
+    timed = {}
+    for quant in (False, True):
+        start = spread(1)
+        q, k, v, ks, vs, table, _ = compare(
+            "step_timed", torch.bfloat16, quant, 1, 16, start)
+        kw = dict(start=start, page_table=table, k_scale=ks, v_scale=vs)
+        ms = time_ms(lambda: flash_decode_paged(q, k, v, **kw), iters=50)
+        plain_ms = time_ms(lambda: flash_decode_paged_plain(q, k, v, **kw),
+                           iters=5)
+        pos = torch.arange(s_len, device="cuda")[None, :]
+        mask = (pos <= start[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        g = hq // hkv
+
+        def chain():
+            if quant:
+                kc = gather_pages_heads_major_quant(k, ks, table, q.dtype)
+                vc = gather_pages_heads_major_quant(v, vs, table, q.dtype)
+            else:
+                kc = gather_pages_heads_major(k, table)
+                vc = gather_pages_heads_major(v, table)
+            return F.scaled_dot_product_attention(
+                qh, kc.repeat_interleave(g, dim=1),
+                vc.repeat_interleave(g, dim=1), attn_mask=mask)
+
+        o, _ = flash_decode_paged(q, k, v, **kw)
+        chain_err = max_err(chain().transpose(1, 2), o)
+        chain_ms = time_ms(chain, iters=20)
+        nbytes = flash_decode_bytes(
+            start, 1, b, hq, hkv, d, 2, page_size=16, n_pages=s_len // 16,
+            kv_itemsize=1 if quant else 2, quant=quant) + b * 4
+        flops = 4.0 * hq * d * float((start.cpu().to(torch.int64) + 1).sum())
+        timed["int8" if quant else "bfloat16"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_chain_ms": chain_ms,
+            "library_chain_max_abs_diff": chain_err,
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": 1e3 * max(flops / H100_BF16_FLOPS,
+                                  nbytes / H100_BYTES_PER_S),
+        }
+    main = timed["bfloat16"]
+    by_ops = main["flops"] / H100_BF16_FLOPS
+    by_bytes = main["bytes"] / H100_BYTES_PER_S
+    return {
+        "name": "flash_decode_paged", "route": "cuda",
+        "source": "d9d_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "d9d_tpu/ops/attention/pallas_decode.py:252",
+        "max_abs_err": worst["bfloat16"],
+        "max_abs_err_fp32": worst["float32"],
+        "max_abs_err_int8": worst["int8"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": None,
+        "library_chain_ms": main["library_chain_ms"],
+        "ms_int8": timed["int8"]["ms"],
+        "bound_ms_int8": timed["int8"]["bound_ms"],
+    }, {
+        "cases": cases, "tolerance": TOLERANCE,
+        "int8_rule": "the rule of q's dtype; int8 pools add no term",
+        "lost_page_tolerance_use": lost,
+        "lost_page_min_use": PAGED_LOST_PAGE_MIN_USE,
+        "timed": timed,
+        "timed_shape": {"B": b, "T": 1, "Hq": hq, "Hkv": hkv, "S": s_len,
+                        "D": d, "page_size": 16, "dtype": "bfloat16",
+                        "pools": ["bfloat16", "int8"]},
+        "library_chain": ("gather pages (int8: times scales, to bf16) + "
+                          "repeat_interleave + scaled_dot_product_attention"),
     }
 
 
@@ -912,20 +1097,24 @@ def phase_kernels():
     say(phase="kernels", kernel="flash_fwd", **detail1)
     k2, detail2 = check_flash_decode(gen)
     say(phase="kernels", kernel="flash_decode", **detail2)
+    k9, detail9 = check_flash_decode_paged(gen)
+    say(phase="kernels", kernel="flash_decode_paged", **detail9)
+    torch.cuda.empty_cache()
     bwd, detail3 = check_flash_bwd(gen)
     say(phase="kernels", kernel="flash_bwd", **detail3)
     torch.cuda.empty_cache()
     moe, detail4 = check_moe_ffn(gen)
     say(phase="kernels", kernel="moe_ffn", **detail4)
     torch.cuda.empty_cache()
-    return [k1, k2, *bwd, *moe]
+    return [k1, k2, k9, *bwd, *moe]
 
 
 # ---------------------------------------------------------------------------
 # launch counters
 
 
-KERNEL_NAMES = ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
+KERNEL_NAMES = ("flash_fwd", "flash_decode", "flash_decode_paged",
+                "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_fused") + MOE_KERNELS
 
 
@@ -938,14 +1127,18 @@ def _moe_wrappers():
 
 
 def reset_counters(model=None):
-    from d9d_tpu_torch.ops.attention.decode import flash_decode
+    from d9d_tpu_torch.ops.attention.decode import (
+        flash_decode,
+        flash_decode_paged,
+    )
     from d9d_tpu_torch.ops.attention.flash import (
         flash_attention,
         flash_attention_bwd,
     )
     from d9d_tpu_torch.ops.moe import group_sizes_on_host
 
-    for fn in (flash_attention, flash_decode, *_moe_wrappers().values()):
+    for fn in (flash_attention, flash_decode, flash_decode_paged,
+               *_moe_wrappers().values()):
         fn.launches = 0
         fn.plain_calls = 0
     for name in ("dq_launches", "dkv_launches", "fused_launches",
@@ -959,7 +1152,10 @@ def reset_counters(model=None):
 def read_counters(model):
     """Kernel launches by name, the plain-version and eager calls (0 on a
     card path), and the MoE backward's group-size readbacks."""
-    from d9d_tpu_torch.ops.attention.decode import flash_decode
+    from d9d_tpu_torch.ops.attention.decode import (
+        flash_decode,
+        flash_decode_paged,
+    )
     from d9d_tpu_torch.ops.attention.flash import (
         flash_attention,
         flash_attention_bwd,
@@ -970,12 +1166,14 @@ def read_counters(model):
     out = {
         "flash_fwd": flash_attention.launches,
         "flash_decode": flash_decode.launches,
+        "flash_decode_paged": flash_decode_paged.launches,
         "flash_bwd_dq": flash_attention_bwd.dq_launches,
         "flash_bwd_dkv": flash_attention_bwd.dkv_launches,
         "flash_bwd_fused": flash_attention_bwd.fused_launches,
     }
     out.update({name: fn.launches for name, fn in moe.items()})
     out["plain_calls"] = (flash_attention.plain_calls + flash_decode.plain_calls
+                          + flash_decode_paged.plain_calls
                           + flash_attention_bwd.plain_calls
                           + sum(fn.plain_calls for fn in moe.values()))
     out["eager_calls"] = model.sdpa.eager_calls
@@ -1058,9 +1256,47 @@ def phase_small_e2e():
         if out[rid] != alone:
             raise AssertionError(
                 f"small model: batcher stream {out[rid]} != generate {alone}")
+    contiguous = [out[r] for r in rids]
+
+    # the paged batcher (page 4: the prompts are prefixes of one sequence,
+    # so later ones hit the prefix cache), card through the paged kernel vs
+    # CPU through its plain version; fp32 pools also vs the contiguous
+    # streams, int8 pools card vs CPU as a share of equal tokens
+    def paged(model, quant):
+        b = ContinuousBatcher(model, batch_size=2, chunk_size=4, page_size=4,
+                              kv_quant=quant)
+        ids_ = [b.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+        res = b.drain()
+        b._kv.check_invariants()
+        return [res[r] for r in ids_], b._kv.prefix_hits, b.stats.device_steps
+
+    paged_info = {}
+    for quant in (None, "int8"):
+        reset_counters(gpu)
+        card, hits, steps = paged(gpu, quant)
+        torch.cuda.synchronize()
+        got_counts = read_counters(gpu)
+        if got_counts != counts(flash_decode_paged=steps * cfg.num_layers):
+            raise AssertionError(
+                f"small model paged {quant}: counters {got_counts}")
+        host, host_hits, _ = paged(cpu, quant)
+        if hits < 1 or host_hits != hits:
+            raise AssertionError(
+                f"small model paged {quant}: prefix hits {hits}/{host_hits}")
+        n_tok = sum(len(x) for x in card)
+        share = sum(a == b for x, y in zip(card, host)
+                    for a, b in zip(x, y)) / n_tok
+        if quant is None and (card != host or card != contiguous):
+            raise AssertionError(
+                f"small model paged: card {card} / CPU {host} / contiguous "
+                f"{contiguous}")
+        paged_info[quant or "float32"] = {
+            "prefix_hits": hits, "card_vs_cpu_equal_tokens": share,
+            "counters": got_counts}
     say(phase="small_e2e", tokens_identical=True, logits_max_abs_err=logit_err,
         logits_tolerance=1e-3, batcher_matches_generate=True,
-        counters=on_card)
+        paged_batcher=paged_info, counters=on_card)
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1402,130 @@ def phase_full_width():
         counters=got,
         peak_memory_bytes=torch.cuda.max_memory_allocated())
     say(phase="profile", **profile_decode_steps(model))
+    return launches, model
+
+
+# paged serving traffic: 12 requests, 6 of them sharing a 256-token prefix
+# (a system prompt). The first shared request and 6 others arrive first; the
+# other 5 shared ones arrive once the first one's prompt has been fed (its
+# prefix pages are then hit-eligible), so they hit the prefix cache.
+PAGED_SHARED_PREFIX = 256
+PAGED_LATE = 5
+
+
+def paged_requests(vocab, seed=9):
+    """``[(prompt, max_new_tokens)]`` in arrival order: the shared prefix's
+    first request, 6 unrelated ones, then the 5 late shared ones."""
+    import random
+
+    rnd = random.Random(seed)
+    shared = [rnd.randrange(vocab) for _ in range(PAGED_SHARED_PREFIX)]
+
+    def tail(lo, hi):
+        return [rnd.randrange(vocab) for _ in range(rnd.randint(lo, hi))]
+
+    reqs = [(shared + tail(16, 16), rnd.randint(16, 48))]
+    reqs += [(tail(16, 512), rnd.randint(16, 48)) for _ in range(6)]
+    reqs += [(shared + tail(16, 256), rnd.randint(16, 48))
+             for _ in range(PAGED_LATE)]
+    return reqs
+
+
+def phase_full_width_paged(model):
+    """Qwen3-8B at 36 layers through the paged ContinuousBatcher (page 16,
+    prefix cache on, default pool: every slot at full length + the garbage
+    page), once with bf16 pools and once with int8 pools, and the contiguous
+    batcher on the same requests and weights for the greedy-token share."""
+    cfg = model.config
+    layers = cfg.num_layers
+    reqs = paged_requests(cfg.vocab_size)
+
+    def serve(**kw):
+        from d9d_tpu_torch.loop import ContinuousBatcher
+
+        reset_counters(model)
+        torch.cuda.reset_peak_memory_stats()
+        batcher = ContinuousBatcher(model, batch_size=8, chunk_size=8, **kw)
+        early = len(reqs) - PAGED_LATE
+        rids = [batcher.submit(p, max_new_tokens=n) for p, n in reqs[:early]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the first request's prompt is fed in these chunks
+        for _ in range(-(-len(reqs[0][0]) // 8)):
+            batcher.step_chunk()
+        rids += [batcher.submit(p, max_new_tokens=n) for p, n in reqs[early:]]
+        outputs = batcher.drain()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        streams = [outputs[r] for r in rids]
+        for toks, (_p, n) in zip(streams, reqs):
+            if len(toks) != n or min(toks) < 0 or max(toks) >= cfg.vocab_size:
+                raise AssertionError(
+                    f"paged batcher {kw}: {len(toks)} of {n} tokens")
+        stats = batcher.stats
+        if stats.readbacks != stats.chunks:
+            raise AssertionError(f"paged batcher {kw}: readbacks {stats}")
+        return batcher, streams, seconds, read_counters(model)
+
+    def report(entry, batcher, seconds, got, **extra):
+        stats = batcher.stats
+        say(phase="full_width_paged", entry=entry, batch_size=8,
+            chunk_size=8, requests=len(reqs),
+            prompt_tokens=sum(len(p) for p, _ in reqs),
+            emitted_tokens=stats.emitted_tokens, seconds=seconds,
+            emitted_tokens_per_s=stats.emitted_tokens / seconds,
+            ms_per_device_step=1e3 * seconds / stats.device_steps,
+            device_steps=stats.device_steps,
+            dispatches_per_1k_tokens=stats.dispatches_per_1k_tokens,
+            readbacks_per_1k_tokens=stats.readbacks_per_1k_tokens,
+            slot_utilization=stats.slot_utilization,
+            hbm_bytes_per_request=batcher.hbm_bytes_per_request(),
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            counters=got, **extra)
+
+    contiguous, want, seconds, got = serve()
+    if got != counts(flash_decode=contiguous.stats.device_steps * layers):
+        raise AssertionError(f"contiguous batcher: counters {got}")
+    report("ContinuousBatcher", contiguous, seconds, got,
+           kv_bytes_resident=contiguous._kv_bytes_static)
+    del contiguous
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(KERNEL_NAMES + ("plain_calls", "eager_calls",
+                                             "moe_readbacks"), 0)
+    n_tokens = sum(len(t) for t in want)
+    for quant in (None, "int8"):
+        batcher, streams, seconds, got = serve(page_size=16,
+                                               prefix_cache=True,
+                                               kv_quant=quant)
+        steps = batcher.stats.device_steps
+        if got != counts(flash_decode_paged=steps * layers):
+            raise AssertionError(f"paged batcher {quant}: counters {got}")
+        kv = batcher._kv
+        kv.check_invariants()
+        if kv.prefix_hits < 1 or kv.pages_in_use != len(kv._entries):
+            raise AssertionError(
+                f"paged batcher {quant}: {kv.prefix_hits} prefix hits, "
+                f"{kv.pages_in_use} pages in use after the drain")
+        same = sum(a == b for s, w in zip(streams, want)
+                   for a, b in zip(s, w))
+        report("ContinuousBatcher(page_size=16, prefix_cache=True"
+               + (", kv_quant='int8')" if quant else ")"),
+               batcher, seconds, got,
+               prefix_hit_rate=batcher.prefix_hit_rate(),
+               prefix_hits=kv.prefix_hits,
+               prefix_hit_tokens=kv.prefix_hit_tokens,
+               num_pages=kv.num_pages, page_bytes=batcher._page_bytes,
+               peak_pages_in_use=kv.peak_pages_in_use,
+               pages_in_use_after_drain=kv.pages_in_use,
+               greedy_tokens_equal_to_contiguous=same / n_tokens,
+               first_diverging_request=next(
+                   (i for i, (s, w) in enumerate(zip(streams, want))
+                    if s != w), None))
+        for name in launches:
+            launches[name] += got[name]
+        del batcher
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1733,7 +2093,10 @@ def main():
     phase_small_e2e()
     phase_small_e2e_train()
     phase_small_e2e_train_moe()
-    launches = phase_full_width()
+    launches, model = phase_full_width()
+    for name, n in phase_full_width_paged(model).items():
+        launches[name] += n
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_full_width_train, phase_full_width_train_moe):

@@ -20,6 +20,13 @@
 // -1e30 sentinel, so a row that sees no key keeps l = 0 and comes out as
 // exact zeros with lse = -1e30 + log(1e-30).
 //
+// Paged mode (template flag PAGED, the paged flash-decode kernel of
+// flash_decode.cu): k/v are page POOLS [P, Hkv, page_size, D] and key j of
+// batch row b is slot j % page_size of pool page page_table[b, j / page_size]
+// — the page id is the only new indirection; masks, splits and the online
+// softmax are unchanged. int8 pools (KV = int8_t) carry f32 per-slot scales
+// [P, Hkv, page_size] and are dequantized as the tile is widened to fp32.
+//
 // Arithmetic is fp32 throughout (tiles are widened when they are loaded into
 // shared memory); the products run on the CUDA cores. This core serves every
 // float32 call (exact fp32 products) and the single-token decode step, which
@@ -31,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace d9d {
 
@@ -60,6 +69,12 @@ struct AttnParams {
   int window;            // -1 = none
   int n_splits;          // key-range splits (grid z)
   int split_len;         // keys per split, multiple of BN
+  // paged mode only: k_sb / v_sb are then the PAGE strides of the pools
+  const int* page_table; // [B, row_pages] int32 pool page ids
+  int page_size;         // slots per page
+  int row_pages;         // page-table entries per batch row (S = row_pages * page_size)
+  const float* k_scale;  // int8 pools: [P, Hkv, page_size] fp32 scales
+  const float* v_scale;
 };
 
 template <typename T> struct Vec;
@@ -90,6 +105,54 @@ __device__ __forceinline__ void store_row(float* dst, const float* x, int n) {
         make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
 }
 
+// n (4 or 8) int8 values from global memory (4 or 8 bytes), widened to fp32
+__device__ __forceinline__ void unpack_i8x4(unsigned w, float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+}
+template <int N>
+__device__ __forceinline__ void load_i8(const int8_t* p, float* out) {
+  static_assert(N == 4 || N == 8, "int8 loads of 4 or 8 values");
+  if constexpr (N == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    unpack_i8x4(x.x, out);
+    unpack_i8x4(x.y, out + 4);
+  } else {
+    unpack_i8x4(*reinterpret_cast<const unsigned*>(p), out);
+  }
+}
+
+// Paged mode: VEC features [c, c + VEC) of key `key` of batch row b, kv
+// head hkv, gathered through the page table and widened to fp32 (int8
+// pools: times their slot's scale, the reference kernel's dequant order).
+template <typename KV, int VEC>
+__device__ __forceinline__ void load_paged_kv(const AttnParams& p, int b,
+                                              int hkv, int key, int c,
+                                              float* kx, float* vx) {
+  const int page = p.page_table[(long long)b * p.row_pages + key / p.page_size];
+  const int slot = key % p.page_size;
+  const KV* kp = static_cast<const KV*>(p.k) + (long long)page * p.k_sb +
+                 (long long)hkv * p.k_sh + (long long)slot * p.k_ss + c;
+  const KV* vp = static_cast<const KV*>(p.v) + (long long)page * p.v_sb +
+                 (long long)hkv * p.v_sh + (long long)slot * p.v_ss + c;
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    load_i8<VEC>(kp, kx);
+    load_i8<VEC>(vp, vx);
+    const long long si = ((long long)page * p.Hkv + hkv) * p.page_size + slot;
+    const float ks = p.k_scale[si];
+    const float vs = p.v_scale[si];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      kx[i] *= ks;
+      vx[i] *= vs;
+    }
+  } else {
+    load16(kp, kx);
+    load16(vp, vx);
+  }
+}
+
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -103,8 +166,11 @@ constexpr size_t attn_smem_bytes() {
          sizeof(int) * (size_t)(2 * RT + BN);
 }
 
-// grid: x = row tile, y = b * Hkv + kv head, z = key split
-template <typename T, int D, int RT, int BN, int NT>
+// grid: x = row tile, y = b * Hkv + kv head, z = key split. T is the type
+// of q and o; KV that of the paged pools (T, or int8_t) and is T unless
+// PAGED.
+template <typename T, int D, int RT, int BN, int NT, bool PAGED = false,
+          typename KV = T>
 __global__ void __launch_bounds__(NT) attn_tile_kernel(const AttnParams p) {
   constexpr int DP = D + 4;   // padded rows: float4 reads, no bank conflicts
   constexpr int SP = BN + 4;
@@ -117,6 +183,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(const AttnParams p) {
   static_assert(NT % BN == 0 && RT % NRG == 0, "score phase tiling");
   static_assert(NT % D == 0 && RT % NCG == 0, "PV phase tiling");
   static_assert(BN % 32 == 0 && D % VEC == 0 && BN % 4 == 0, "tile widths");
+  static_assert(PAGED || std::is_same<KV, T>::value, "int8 k/v are paged only");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
@@ -142,10 +209,11 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(const AttnParams p) {
   const int base = p.offsets ? p.offsets[b] : 0;
 
   const T* qg = static_cast<const T*>(p.q);
-  const T* kg = static_cast<const T*>(p.k) + (long long)b * p.k_sb +
-                (long long)hkv * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + (long long)b * p.v_sb +
-                (long long)hkv * p.v_sh;
+  // contiguous mode: this (batch row, kv head)'s cache slice
+  const T* kg = static_cast<const T*>(p.k) +
+                (PAGED ? 0 : (long long)b * p.k_sb + (long long)hkv * p.k_sh);
+  const T* vg = static_cast<const T*>(p.v) +
+                (PAGED ? 0 : (long long)b * p.v_sb + (long long)hkv * p.v_sh);
 
   // ---- per-row state ----------------------------------------------------
   if (tid < RT) {
@@ -209,8 +277,12 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(const AttnParams p) {
       const int key = j0 + jj;
       float kx[VEC], vx[VEC];
       if (key < p.S) {
-        load16(kg + (long long)key * p.k_ss + c, kx);
-        load16(vg + (long long)key * p.v_ss + c, vx);
+        if constexpr (PAGED) {
+          load_paged_kv<KV, VEC>(p, b, hkv, key, c, kx, vx);
+        } else {
+          load16(kg + (long long)key * p.k_ss + c, kx);
+          load16(vg + (long long)key * p.v_ss + c, vx);
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) { kx[i] = 0.f; vx[i] = 0.f; }
@@ -386,10 +458,11 @@ __global__ void __launch_bounds__(D) attn_combine_kernel(const AttnParams p) {
   }
 }
 
-template <typename T, int D, int RT, int BN, int NT>
+template <typename T, int D, int RT, int BN, int NT, bool PAGED = false,
+          typename KV = T>
 inline cudaError_t launch_attn(const AttnParams& p, cudaStream_t stream) {
   constexpr size_t smem = attn_smem_bytes<D, RT, BN>();
-  auto kernel = attn_tile_kernel<T, D, RT, BN, NT>;
+  auto kernel = attn_tile_kernel<T, D, RT, BN, NT, PAGED, KV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -30,6 +30,20 @@
 // their products in fp32 on the CUDA cores (attn_tile.cuh): enough for a step
 // that is bound by memory traffic. A bfloat16 continuation chunk is bound by
 // operations and takes the tensor-core core (attn_mma.cuh).
+//
+// d9d_flash_paged_decode (below) replaces the TPU kernel
+// `_paged_decode_kernel` (called from `_paged_decode_call`) of the same file:
+// the same function, with the cache read from page pools [P, Hkv, page_size,
+// D] through a page table [B, n_pages] — logical key block ki of row b is
+// pool page page_table[b, ki] — and, for int8 pools, dequantized by f32
+// per-slot scales [P, Hkv, page_size] inside the fp32 accumulation. Where the
+// TPU kernel gathered whole pages through its block index map, a key tile
+// here gathers its rows page by page (attn_tile.cuh, PAGED), so page_size is
+// a runtime argument that need not match the tile. Bound: bytes, as above —
+// the visible pages (int8: a quarter of fp32's, half of bf16's) plus their
+// scales and the page table. The paged serving loop feeds one token a row a
+// step, so every paged call takes the CUDA-core core; the key split and the
+// logsumexp combine are the contiguous kernel's.
 #include "attn_mma.cuh"
 #include "attn_tile.cuh"
 
@@ -137,5 +151,103 @@ extern "C" int d9d_flash_decode(
   cudaError_t err = dtype == 0 ? dispatch_decode_fma<float>(p, D, s)
                   : dtype == 1 ? dispatch_decode_bf16(p, D, s)
                                : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+
+// ---------------------------------------------------------------------------
+// paged flash decode
+
+namespace {
+template <typename T, typename KV>
+cudaError_t dispatch_paged(const AttnParams& p, int D, cudaStream_t stream) {
+  const bool few_rows = p.g * p.T <= FEW_ROWS;
+  if (D == 128) {
+    return few_rows
+        ? launch_attn<T, 128, FEW_ROWS, FMA_KEY_TILE, 128, true, KV>(p, stream)
+        : launch_attn<T, 128, FMA_ROW_TILE, FMA_KEY_TILE, 128, true, KV>(p, stream);
+  }
+  if (D == 64) {
+    return few_rows
+        ? launch_attn<T, 64, FEW_ROWS, FMA_KEY_TILE, 128, true, KV>(p, stream)
+        : launch_attn<T, 64, FMA_ROW_TILE, FMA_KEY_TILE, 128, true, KV>(p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+}  // namespace
+
+// The tiling of a paged call with `rows` = g*T query rows per kv head (every
+// dtype takes the CUDA-core core). Host code only.
+extern "C" int d9d_flash_paged_decode_tiling(int rows, int* row_tile,
+                                             int* split_align) {
+  if (rows <= 0 || row_tile == nullptr || split_align == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *row_tile = rows <= FEW_ROWS ? FEW_ROWS : FMA_ROW_TILE;
+  *split_align = SPLIT_ALIGN;
+  return 0;
+}
+
+// dtype (of q and o): 0 = float32, 1 = bfloat16; kv_int8: 0 = the pools hold
+// q's dtype, 1 = int8 pools with k_scale / v_scale [P, Hkv, page_size] fp32
+// contiguous (null otherwise). Pools are [P, Hkv, page_size, D]-addressed
+// with element strides (page, head, slot), head_dim contiguous; page_table
+// int32 [B, row_pages] contiguous, every entry a page of the pools; offsets
+// int32 [B]. q/o, lse, the split scratch and n_splits/split_len as for
+// d9d_flash_decode with S = row_pages * page_size. Launches on `stream`,
+// allocates nothing, never synchronizes.
+extern "C" int d9d_flash_paged_decode(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, void* o, void* lse,
+    const void* offsets, const void* page_table,
+    void* o_part, void* lse_part,
+    int B, int T, int Hq, int Hkv, int page_size, int row_pages, int D,
+    int dtype, int kv_int8,
+    long long q_sb, long long q_st, long long q_sh,
+    long long k_sp, long long k_sh, long long k_ss,
+    long long v_sp, long long v_sh, long long v_ss,
+    long long o_sb, long long o_st, long long o_sh,
+    float scale, int window, int n_splits, int split_len, void* stream) {
+  const long long S = (long long)row_pages * page_size;
+  if (B <= 0 || T <= 0 || page_size <= 0 || row_pages <= 0 || Hkv <= 0 ||
+      Hq % Hkv != 0 || S > 0x7fffffffLL || page_table == nullptr ||
+      offsets == nullptr || (kv_int8 != 0 && kv_int8 != 1) ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      n_splits < 1 || split_len % SPLIT_ALIGN != 0 ||
+      (long long)n_splits * split_len < S ||
+      (n_splits > 1 && (o_part == nullptr || lse_part == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnParams p{};
+  p.q = q; p.k = k_pool; p.v = v_pool; p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.offsets = static_cast<const int*>(offsets);
+  p.q_tag = nullptr;
+  p.k_tag = nullptr;
+  p.o_part = static_cast<float*>(o_part);
+  p.lse_part = static_cast<float*>(lse_part);
+  p.B = B; p.T = T; p.Hq = Hq; p.Hkv = Hkv; p.S = (int)S; p.g = Hq / Hkv;
+  p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
+  p.k_sb = k_sp; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sp; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
+  p.scale = scale; p.causal = 1; p.window = window;
+  p.n_splits = n_splits; p.split_len = split_len;
+  p.page_table = static_cast<const int*>(page_table);
+  p.page_size = page_size;
+  p.row_pages = row_pages;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = kv_int8 ? dispatch_paged<float, int8_t>(p, D, s)
+                  : dispatch_paged<float, float>(p, D, s);
+  } else if (dtype == 1) {
+    err = kv_int8 ? dispatch_paged<__nv_bfloat16, int8_t>(p, D, s)
+                  : dispatch_paged<__nv_bfloat16, __nv_bfloat16>(p, D, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }

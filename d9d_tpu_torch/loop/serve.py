@@ -1,6 +1,6 @@
 """Continuous batching: a slot-based serving loop over decode models
 (counterpart of ``ContinuousBatcher`` in ``d9d_tpu/loop/serve.py``, in its
-default CONTIGUOUS cache mode).
+CONTIGUOUS cache mode and its PAGED mode with the prefix cache and int8 KV).
 
 ``ContinuousBatcher`` keeps a fixed batch of ``batch_size`` slots decoding;
 requests are admitted into free slots as they arrive and evicted on
@@ -37,14 +37,30 @@ slice. Idle and dead rows have their write index pinned to 0 every step, so
 a slot left idle for arbitrarily many steps can never run past capacity or
 defeat the flash-decode block skip.
 
+Paged KV cache + prefix cache: with ``page_size`` set, the sequence caches
+become page POOLS ``[num_pages, Hkv, page_size, D]`` per layer, read and
+written through one per-row ``[B, pages_per_row]`` page table
+(:class:`~d9d_tpu_torch.nn.attention.PagedDecodeCache`): KV memory per
+request is proportional to its actual length, admission is bounded by free
+pages (the queue head waits, it is never rejected), and a content-hashed
+prefix cache maps a shared prompt's full pages copy-on-write into later
+requests, which skip feeding them. All policy (free lists, refcounts,
+hashing, LRU eviction — ``loop/kv_paging.py``) runs on the host at the chunk
+boundaries admission already owns; the table reaches the device as one
+asynchronous upload from pinned memory at a clean boundary, so paging adds
+no dispatch and no readback. Each step pins dead and idle rows' tables to
+the garbage page 0. ``kv_quant="int8"`` stores the pools as int8 with f32
+per-slot scales beside them; writes quantize, the paged flash-decode kernel
+dequantizes. Greedy paged serving is token-identical to the contiguous
+layout, prefix hit or cold; int8 KV is drift-bounded instead.
+
 Parity contract: greedy serving of any admission schedule emits, per
 request, exactly the tokens ``generate(model, prompt)`` produces.
 
-Not ported yet (absent, or raising ``NotImplementedError``): paged KV cache
-and prefix cache (``page_size`` / ``num_pages`` / ``prefix_cache``), int8 KV
-(``kv_quant``), live weight publish, export/import of pages, deadlines,
-bounded queues and the stall watchdog, telemetry / metrics server / trace
-ids, and the serving fleet.
+Not ported yet (absent, or raising ``NotImplementedError``): live weight
+publish (and with it the prefix cache's invalidation), export/import of KV
+pages, deadlines, bounded queues and the stall watchdog, telemetry / metrics
+server / trace ids, and the serving fleet.
 """
 
 import collections
@@ -55,6 +71,7 @@ import numpy as np
 import torch
 
 from d9d_tpu_torch.loop.generate import sample_tokens
+from d9d_tpu_torch.loop.kv_paging import PagedKVAllocator
 
 
 @dataclasses.dataclass
@@ -74,6 +91,14 @@ class _Request:
     rid: int
     prompt: list
     max_new_tokens: int
+
+    @property
+    def total_tokens(self) -> int:
+        """Cache slots this request writes over its lifetime: every prompt
+        token plus every generated token except the final sample (emitted
+        but never fed back) — the footprint submit validation and page
+        allocation both key on."""
+        return len(self.prompt) + self.max_new_tokens - 1
 
 
 @dataclasses.dataclass
@@ -172,6 +197,14 @@ class ContinuousBatcher:
     selects the per-token stepping path. ``overlap`` (fused mode) lets
     ``drain()`` keep one chunk in flight while the previous chunk's tokens
     are fetched. ``temperature > 0`` needs an explicit ``generator``.
+
+    Paged KV: ``page_size`` switches to page pools + page tables.
+    ``num_pages`` sizes the pool (default: every slot at full
+    ``decode_max_length`` plus the reserved garbage page — no savings until
+    it is shrunk). ``prefix_cache``: None (default) enables it when every
+    cache leaf is pageable, True forces it (raising if unsound), False
+    disables it. ``kv_quant="int8"`` (paged mode only) stores int8 pools
+    with f32 per-slot scales.
     """
 
     def __init__(
@@ -193,12 +226,6 @@ class ContinuousBatcher:
             raise ValueError("temperature > 0 needs a torch.Generator")
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-        if page_size is not None or num_pages is not None or prefix_cache:
-            raise NotImplementedError(
-                "the paged KV cache and the prefix cache are not ported yet"
-            )
-        if kv_quant is not None:
-            raise NotImplementedError("int8 KV (kv_quant) is not ported yet")
         self._model = model
         self._dev = model.device
         self._b = batch_size
@@ -211,6 +238,34 @@ class ContinuousBatcher:
         if self._dml <= 0:
             raise ValueError("model must be built with decode_max_length > 0")
 
+        # paged KV mode: page pools + per-row page tables; allocation,
+        # refcounting and prefix caching are host work at the chunk
+        # boundaries (loop/kv_paging.py)
+        self._paged = page_size is not None
+        self._kv = None
+        if self._paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self._page_size = int(page_size)
+            self._pages_per_row = -(-self._dml // self._page_size)
+            self._num_pages = (
+                int(num_pages) if num_pages is not None
+                # default: every slot can hold a full-length request (+ the
+                # reserved garbage page); shrink it to overcommit memory
+                else batch_size * self._pages_per_row + 1
+            )
+        elif num_pages is not None or prefix_cache is not None:
+            raise ValueError(
+                "num_pages/prefix_cache need paged mode (set page_size)"
+            )
+        if kv_quant is not None and not self._paged:
+            raise ValueError("kv_quant needs paged mode (set page_size)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {kv_quant!r}"
+            )
+        self._kv_quant = kv_quant
+
         self._slots = [_Slot() for _ in range(batch_size)]
         self._queue: collections.deque[_Request] = collections.deque()
         self._next_rid = 0
@@ -219,6 +274,29 @@ class ContinuousBatcher:
         self.done: set[int] = set()
         self.stats = ServeStats()
         self._cache = self._init_cache()
+        # KV residency accounting (hbm_bytes_per_request): peak concurrent
+        # running requests over the measurement window
+        self._peak_running = 0
+        if self._paged:
+            unpageable = list(self._cache.unpageable_leaves)
+            if prefix_cache and unpageable:
+                raise ValueError(
+                    "prefix_cache=True is unsound for this model: cache "
+                    f"leaves {unpageable} hold per-row recurrent state that "
+                    "summarizes the whole prefix and cannot be restored "
+                    "from KV pages"
+                )
+            self._kv = PagedKVAllocator(
+                num_pages=self._num_pages,
+                page_size=self._page_size,
+                rows=batch_size,
+                max_pages_per_row=self._pages_per_row,
+                enable_prefix_cache=(
+                    prefix_cache if prefix_cache is not None
+                    else not unpageable
+                ),
+            )
+            self._kv_table_dirty = False  # the zeroed table matches the mirror
 
         # fused-mode device carries, updated by every chunk
         dev = self._dev
@@ -231,8 +309,22 @@ class ContinuousBatcher:
 
     def _init_cache(self):
         """The batcher's decode cache: per-row ``[B]`` write indices in
-        place of the scalar one (the decode modules accept either rank)."""
-        return self._model.init_cache(self._b, per_row=True)
+        place of the scalar one (the decode modules accept either rank);
+        in paged mode the page pools, scale pools and page table. Records
+        the dense layout's KV bytes (the contiguous mode's residency and the
+        paged mode's savings denominator) and the bytes of one page."""
+        if not self._paged:
+            cache = self._model.init_cache(self._b, per_row=True)
+            self._kv_bytes_static = sum(
+                x.nbytes for x in (*cache.keys, *cache.values))
+            return cache
+        cache = self._model.init_cache(
+            self._b, page_size=self._page_size, num_pages=self._num_pages,
+            kv_quant=self._kv_quant,
+        )
+        self._kv_bytes_static = cache.dense_bytes
+        self._page_bytes = cache.page_bytes
+        return cache
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host plan → device. From pinned memory and asynchronous on a CUDA
@@ -266,26 +358,39 @@ class ContinuousBatcher:
         # idle rows ride through the static-shape step; pin their write
         # index so an arbitrarily long idle stretch can't run past capacity
         # or defeat the flash block skip
-        self._cache.pin_index(live)
+        self._pin(live)
         return nxt
+
+    def _pin(self, live: torch.Tensor) -> None:
+        """Pin dead/idle rows' write indices to 0 and, paged, their page
+        tables to the garbage page (both in place, on the device)."""
+        self._cache.pin_index(live)
+        if self._paged:
+            self._cache.pin_page_table(live)
 
     @torch.no_grad()
     def _run_fused(self, k: int, plan: torch.Tensor, admit_rows: list[int]):
-        """One fused K-step chunk. ``plan`` is the uploaded ``[K+4, B]``
+        """One fused K-step chunk. ``plan`` is the uploaded ``[K+5, B]``
         int32 host plan: rows ``0..K-1`` the forced prompt tokens per step,
-        then ``n_forced``, ``emit_from``, the admit mask and the admit
-        budgets. Returns the ``[B, K]`` device-side emission buffer."""
+        then ``n_forced``, ``emit_from``, the admit mask, the admit budgets
+        and the admit positions (paged: the first token past a prefix-cache
+        hit; else 0). Returns the ``[B, K]`` device-side emission buffer."""
         forced_t = plan[:k]
         n_forced, emit_from = plan[k], plan[k + 1]
         tok, pos, live, rem = (
             self._tok_d, self._pos_d, self._live_d, self._rem_d
         )
         if admit_rows:
-            # boundary work, enqueued with the chunk: zero admitted rows'
-            # cache and reset their carries
+            # boundary work, enqueued with the chunk: reset admitted rows'
+            # cache (paged: only their write index — the pools are shared)
+            # and their carries
             admit_mask = plan[k + 2].bool()
-            self._cache.zero_rows(admit_rows)
-            pos = torch.where(admit_mask, torch.zeros_like(pos), pos)
+            admit_pos = plan[k + 4]
+            if self._paged:
+                self._cache.reset_rows(admit_mask, admit_pos)
+            else:
+                self._cache.zero_rows(admit_rows)
+            pos = torch.where(admit_mask, admit_pos, pos)
             live = live | admit_mask
             rem = torch.where(admit_mask, plan[k + 3], rem)
         eos = self._eos
@@ -310,7 +415,7 @@ class ContinuousBatcher:
             live = live & ~died
             tok = torch.where(live, nxt, tok)
             pos = torch.where(live, pos + 1, pos)
-            self._cache.pin_index(live)
+            self._pin(live)
         self._tok_d, self._pos_d, self._live_d, self._rem_d = (
             tok, pos, live, rem
         )
@@ -334,6 +439,13 @@ class ContinuousBatcher:
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens}"
                 f" - 1 = {need} exceeds decode_max_length={self._dml}"
             )
+        if self._paged and not self._kv.fits_ever(need):
+            raise ValueError(
+                f"request needs {self._kv.pages_needed(need)} pages but "
+                f"the pool holds {self._num_pages - 1} allocatable "
+                f"(num_pages={self._num_pages}, page_size="
+                f"{self._page_size}); it could never be admitted"
+            )
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(_Request(rid, prompt, max_new_tokens))
@@ -347,28 +459,133 @@ class ContinuousBatcher:
     def _busy(self) -> bool:
         return any(s.rid >= 0 for s in self._slots)
 
+    def export_kv_pages(self, *args, **kwargs):
+        """Cross-replica KV page shipment — not ported yet (ROADMAP A10)."""
+        raise NotImplementedError(
+            "export_kv_pages (KV page shipment) is not ported yet")
+
+    def import_kv_pages(self, *args, **kwargs):
+        """Cross-replica KV page shipment — not ported yet (ROADMAP A10)."""
+        raise NotImplementedError(
+            "import_kv_pages (KV page shipment) is not ported yet")
+
+    # ------------------------------------------------------------------
+    # paged KV bookkeeping (loop/kv_paging.py): all host work, all at the
+    # existing chunk boundaries — no dispatch and no readback is added
+
+    def _try_alloc(self, row: int, req: _Request):
+        """Map the queue head onto pages (prefix-cache walk + free-list
+        allocation); None leaves it queued — admission is bounded by free
+        pages, not rows."""
+        alloc = self._kv.admit(row, req.rid, req.prompt, req.total_tokens)
+        if alloc is not None:
+            self._kv_table_dirty = True
+        return alloc
+
+    def _push_page_table(self) -> None:
+        """Sync the device page table from the host mirror: one asynchronous
+        upload from pinned memory, ordered before the next dispatch on the
+        stream. Only called at clean boundaries (no chunk in flight), so a
+        zeroed row reroutes a retired row's writes to the garbage page
+        before its next step."""
+        if not self._kv_table_dirty:
+            return
+        self._kv_table_dirty = False
+        table = torch.from_numpy(self._kv.table.copy())
+        if self._dev.type == "cuda":
+            table = table.pin_memory()
+        self._cache.set_page_table(table)
+
+    def _release_row_pages(self, row: int, *, device_dead: bool) -> None:
+        """Drop a retired row's page references. ``device_dead`` rows
+        (finished on the device: their writes are already pinned to the
+        garbage page) free at once; a row retired by the host with chunks
+        in flight DEFERS — its device twin may still be writing into these
+        pages, so they stay held until the zeroed table row has been pushed
+        at a clean boundary (``flush_deferred``)."""
+        if device_dead or not self._pending:
+            self._kv.release(row)
+        else:
+            self._kv.defer_release(row)
+        self._kv_table_dirty = True
+        self._note_pages()
+
+    def _note_pages(self) -> None:
+        """Peak-concurrency accounting both modes share — host arithmetic."""
+        running = sum(1 for s in self._slots if s.rid >= 0)
+        self._peak_running = max(self._peak_running, running)
+
+    def _admit_paged_boundary(self) -> None:
+        """Clean-boundary page work before an admission pass: free deferred
+        rows' pages (their zeroed table rows are pushed right after)."""
+        if self._kv.flush_deferred():
+            self._kv_table_dirty = True
+
+    def hbm_bytes_per_request(self) -> float:
+        """Peak resident KV bytes over peak concurrent running requests.
+        Contiguous mode charges the full static allocation (every row's
+        decode_max_length is resident whether used or not); paged mode
+        charges the pages actually mapped."""
+        if self._paged:
+            resident = self._kv.peak_pages_in_use * self._page_bytes
+        else:
+            resident = self._kv_bytes_static
+        return resident / max(1, self._peak_running)
+
+    def prefix_hit_rate(self) -> float:
+        """Admissions served (partly) from the prefix cache over all
+        admissions; 0.0 when disabled or idle."""
+        if self._kv is None:
+            return 0.0
+        total = self._kv.prefix_hits + self._kv.prefix_misses
+        return self._kv.prefix_hits / total if total else 0.0
+
     # ------------------------------------------------------------------
     # per-token path (chunk_size=None): the exactness oracle for the fused
     # path and the latency-critical single-token mode
 
     def _admit_legacy(self):
         reset_rows = []
+        admit_pos = np.zeros((self._b,), np.int32)
+        if self._paged:
+            self._admit_paged_boundary()
         for i, slot in enumerate(self._slots):
             if slot.rid >= 0 or not self._queue:
                 continue
-            req = self._queue.popleft()
+            req = self._queue[0]
+            start_pos = 0
+            if self._paged:
+                alloc = self._try_alloc(i, req)
+                if alloc is None:
+                    break  # head-of-line waits for pages to free
+                start_pos = alloc.start_pos
+            self._queue.popleft()
             self._slots[i] = _Slot(
                 rid=req.rid,
-                pending=list(req.prompt[1:]),
-                pos=0,
+                pending=list(req.prompt[start_pos + 1:]),
+                pos=start_pos,
                 emitted=0,
                 budget=req.max_new_tokens,
             )
-            self._tokens[i] = req.prompt[0]
+            self._tokens[i] = req.prompt[start_pos]
+            admit_pos[i] = start_pos
             reset_rows.append(i)
         if reset_rows:
-            self._cache.zero_rows(reset_rows)
+            self._reset_rows(reset_rows, admit_pos)
             self.stats.host_dispatches += 1
+        if self._paged:
+            self._push_page_table()
+        self._note_pages()
+
+    def _reset_rows(self, rows: list[int], pos: np.ndarray) -> None:
+        """Per-token path: reset the given rows' cache state — contiguous:
+        zero their slices; paged: move their write index to ``pos``."""
+        if self._paged:
+            mask = np.zeros((self._b,), bool)
+            mask[rows] = True
+            self._cache.reset_rows(self._upload(mask), self._upload(pos))
+        else:
+            self._cache.zero_rows(rows)
 
     def _step_legacy(self) -> dict[int, int]:
         self._admit_legacy()
@@ -394,6 +611,10 @@ class ContinuousBatcher:
             if slot.rid < 0:
                 continue
             slot.pos += 1
+            if self._paged and not slot.pending:
+                # the whole prompt has been dispatched: this rid's prefix
+                # cache entries become hit-eligible (idempotent)
+                self._kv.mark_filled(slot.rid)
             if slot.pending:  # still consuming the prompt
                 self._tokens[i] = slot.pending.pop(0)
                 continue
@@ -410,12 +631,16 @@ class ContinuousBatcher:
                 self._slots[i] = _Slot()
                 self._tokens[i] = 0
                 evict_rows.append(i)
+                if self._paged:
+                    # per-token rows only step under a host live mask, so a
+                    # cleared slot can never write again: free now
+                    self._release_row_pages(i, device_dead=True)
             else:
                 self._tokens[i] = tok
         if evict_rows:
             # reset at EVICTION, not just admission, so the freed row's
             # cache contents can't leak into a later diagnostic view
-            self._cache.zero_rows(evict_rows)
+            self._reset_rows(evict_rows, np.zeros((self._b,), np.int32))
             self.stats.host_dispatches += 1
         return emitted
 
@@ -431,25 +656,43 @@ class ContinuousBatcher:
         previous dispatch (prompt feeding advances host-side, everything
         else is a device carry).
         """
-        plan = np.zeros((k + 4, self._b), np.int32)
+        plan = np.zeros((k + 5, self._b), np.int32)
         forced, n_forced, emit_from = plan[:k], plan[k], plan[k + 1]
         admit_mask, admit_budget = plan[k + 2], plan[k + 3]
+        admit_pos = plan[k + 4]
         emit_from[:] = k
         admit_rows = []
         if admit:
+            if self._paged:
+                # admit=True: no chunk in flight, so deferred pages free now;
+                # the zeroed table rows are pushed below, before this dispatch
+                self._admit_paged_boundary()
             for i, slot in enumerate(self._slots):
                 if slot.rid >= 0 or not self._queue:
                     continue
-                req = self._queue.popleft()
+                req = self._queue[0]
+                start_pos = 0
+                if self._paged:
+                    alloc = self._try_alloc(i, req)
+                    if alloc is None:
+                        break  # head-of-line waits for pages
+                    start_pos = alloc.start_pos
+                self._queue.popleft()
                 self._slots[i] = _Slot(
                     rid=req.rid,
-                    feed=list(req.prompt),
+                    # a prefix-cache hit skips the cached tokens: feeding
+                    # resumes at the first un-cached one
+                    feed=list(req.prompt[start_pos:]),
                     emitted=0,
                     budget=req.max_new_tokens,
                 )
                 admit_mask[i] = 1
                 admit_budget[i] = req.max_new_tokens
+                admit_pos[i] = start_pos
                 admit_rows.append(i)
+            if self._paged:
+                self._push_page_table()
+            self._note_pages()
 
         rids = []
         for i, slot in enumerate(self._slots):
@@ -465,6 +708,13 @@ class ContinuousBatcher:
             slot.feed = slot.feed[k:]
 
         toks = self._run_fused(k, self._upload(plan), admit_rows)
+        if self._paged:
+            for slot in self._slots:
+                if slot.rid >= 0 and not slot.feed:
+                    # the whole prompt is now DISPATCHED: this rid's prefix
+                    # cache entries become hit-eligible — later admissions
+                    # dispatch after it, so their reads see the writes
+                    self._kv.mark_filled(slot.rid)
         self._pending.append(
             (_Readback(toks),
              _ChunkPlan(k=k, rids=rids, emit_from=emit_from.tolist()))
@@ -503,6 +753,12 @@ class ContinuousBatcher:
                     self.done.add(rid)
                     self._slots[i] = _Slot()
                     busy_steps = j + 1
+                    if self._paged:
+                        # the device row died at this same step (its later
+                        # writes go to the garbage page), so its pages free
+                        # now; reuse waits for the next admit boundary,
+                        # which pushes the zeroed table row first
+                        self._release_row_pages(i, device_dead=True)
                     break
             self.stats.slot_steps_busy += busy_steps
         return emitted

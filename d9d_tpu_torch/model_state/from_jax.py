@@ -23,6 +23,13 @@ parameters of the port's counterpart module (a whole
 
 It raises on any key of ``flat`` that is left over and on any parameter of
 the model that got no value. This module imports numpy and torch only.
+
+Decode caches are state, not weights: the contiguous slot cache and the
+paged serving loop's page pools, int8 scale pools and page table
+(``nn/attention.py`` ``DecodeCache`` / ``PagedDecodeCache``) are built
+empty by the caller and never carried across. A model served from paged
+pools is the same module as one served from a contiguous cache, so the
+mapping above covers it unchanged.
 """
 
 import numpy as np

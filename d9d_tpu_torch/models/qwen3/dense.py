@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.models.qwen3.config import Qwen3DenseConfig
-from d9d_tpu_torch.nn.attention import DecodeCache
+from d9d_tpu_torch.nn.attention import DecodeCache, PagedDecodeCache
 from d9d_tpu_torch.nn.decoder import DecoderLayer
 from d9d_tpu_torch.nn.embedding import TokenEmbedding
 from d9d_tpu_torch.nn.heads import LanguageModellingHead
@@ -168,12 +168,29 @@ class Qwen3DenseCausalLM(nn.Module):
             param_dtype=param_dtype, device=dev, generator=gen,
         )
 
-    def init_cache(self, batch_size: int, *, per_row: bool = False) -> DecodeCache:
+    def init_cache(
+        self,
+        batch_size: int,
+        *,
+        per_row: bool = False,
+        page_size: int | None = None,
+        num_pages: int | None = None,
+        kv_quant: str | None = None,
+    ) -> "DecodeCache | PagedDecodeCache":
         """A zeroed decode cache for ``batch_size`` rows, on the model's
-        device, in the compute dtype."""
+        device, in the compute dtype. With ``page_size`` it is the paged
+        serving loop's :class:`PagedDecodeCache` (``num_pages`` pages per
+        layer pool, int8 pools under ``kv_quant="int8"``, per-row indices)."""
         if self.decode_max_length <= 0:
             raise ValueError("model must be built with decode_max_length > 0")
         cfg = self.config
+        if page_size is not None:
+            return PagedDecodeCache(
+                cfg.num_layers, batch_size, cfg.num_kv_heads,
+                self.decode_max_length, cfg.head_dim, page_size=page_size,
+                num_pages=num_pages, dtype=self.dtype, kv_quant=kv_quant,
+                device=self.device,
+            )
         return DecodeCache(
             cfg.num_layers, batch_size, cfg.num_kv_heads,
             self.decode_max_length, cfg.head_dim,

@@ -1,4 +1,9 @@
-from d9d_tpu_torch.nn.attention import DecodeCache, GroupedQueryAttention, LayerKVCache
+from d9d_tpu_torch.nn.attention import (
+    DecodeCache,
+    GroupedQueryAttention,
+    LayerKVCache,
+    PagedDecodeCache,
+)
 from d9d_tpu_torch.nn.decoder import DecoderLayer
 from d9d_tpu_torch.nn.embedding import TokenEmbedding
 from d9d_tpu_torch.nn.heads import LanguageModellingHead
@@ -21,6 +26,7 @@ __all__ = [
     "LanguageModellingHead",
     "LayerKVCache",
     "MoELayer",
+    "PagedDecodeCache",
     "RMSNorm",
     "SharedExpertParameters",
     "SharedSwiGLU",

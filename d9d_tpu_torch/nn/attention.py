@@ -1,16 +1,20 @@
-"""Grouped-query attention block and its decode cache (counterpart of
+"""Grouped-query attention block and its decode caches (counterpart of
 ``d9d_tpu/nn/attention.py``: ``GroupedQueryAttention`` with the contiguous
-branch of ``_decode_attend``, the heads-major cache append, the slot-mask
-helpers and the prefill segments).
+and the paged branches of ``_decode_attend``, the heads-major cache append
+into a slot cache or a page pool (int8 with per-slot scales under
+``kv_quant``), the slot-mask helpers and the prefill segments).
 
 QKV projections → optional per-head QK RMSNorm → (optionally partial) RoPE →
 pluggable SDPA backend → optional sigmoid output gate → output projection.
 
 Where the JAX module keeps its KV cache in flax's mutable ``"cache"``
-collection, the port keeps it in an explicit :class:`DecodeCache` that the
-caller (``loop/generate.py``, ``loop/serve.py``) owns and passes in. The
-cache is UPDATED IN PLACE. Every layer shares ONE write index tensor, which
-the model advances once per call (not once per layer).
+collection, the port keeps it in an explicit :class:`DecodeCache` (or, for
+the paged serving loop, :class:`PagedDecodeCache`) that the caller
+(``loop/generate.py``, ``loop/serve.py``) owns and passes in. The cache is
+UPDATED IN PLACE. Every layer shares ONE write index tensor, which the model
+advances once per call (not once per layer); a paged cache's layers also
+share ONE page table (the JAX serving loop seeds an identical
+``page_table`` leaf per module scope).
 
 The decode contracts the JAX module asserts through ``checkify`` (the
 multi-token fast path needs an empty cache; the cache must not overflow)
@@ -25,7 +29,12 @@ import torch
 from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
-from d9d_tpu_torch.nn.decode_flags import in_continuation_chunk
+from d9d_tpu_torch.nn.decode_flags import (
+    PAGED_SCALE_SUFFIX,
+    in_continuation_chunk,
+    map_page_table,
+    paged_pool_shape,
+)
 from d9d_tpu_torch.nn.linear import Projection
 from d9d_tpu_torch.nn.norm import RMSNorm
 from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
@@ -47,9 +56,17 @@ class LayerKVCache:
     index: torch.Tensor
     # where this call's T new tokens go: int64 slots ``[T]`` (shared index)
     # or ``[B, T]`` (per-row), and the batch-row selector ``[B, 1]`` the
-    # per-row write needs — computed once per model call, not once per layer
+    # per-row write needs — computed once per model call, not once per layer.
+    # Paged: ``slots`` is each row's slot within its page ``[B]`` and
+    # ``rows`` the pool page that slot lies in ``[B]``.
     slots: torch.Tensor
     rows: torch.Tensor
+    # paged mode only: k/v are pools ``[P, Hkv, page_size, D]`` read through
+    # ``page_table [B, n_pages]``; int8 pools carry ``[P, Hkv, page_size]``
+    # f32 scales
+    page_table: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_length(self) -> int:
@@ -134,8 +151,173 @@ class DecodeCache:
         self._slots = None
 
 
+def _paged_slot(page_table: torch.Tensor, start: torch.Tensor,
+                page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise (page, offset) for logical slot ``start [B]``: the page id
+    gathered from the table, the offset within it. Dead/idle rows (their
+    ``start`` and table row pinned to 0) land on the garbage page."""
+    start = start.to(torch.int64)
+    page = page_table.gather(1, (start // page_size)[:, None])[:, 0]
+    return page.to(torch.int64), start % page_size
+
+
+class PagedDecodeCache:
+    """Paged KV cache of a whole model (counterpart of the pools, scale
+    pools and page tables ``_init_cache`` of ``d9d_tpu/loop/serve.py`` seeds
+    in place of the dense cache leaves): per layer, heads-major page pools
+    ``[num_pages, Hkv, page_size, D]`` for k and v — int8, with f32
+    ``[num_pages, Hkv, page_size]`` scale pools beside them, when
+    ``kv_quant="int8"`` — ONE ``page_table [B, pages_per_row]`` int32
+    shared by every layer, and the per-row write index ``[B]``. Owned by
+    the serving loop, which fills the table from its host allocator
+    (``loop/kv_paging.py``); updated in place. Page 0 is the garbage page.
+
+    ``pools`` is keyed by the JAX package's cache leaf names
+    (``cached_key``, ``cached_value`` and their ``_scale`` siblings).
+    """
+
+    # per-row cache state that pages cannot restore (the reference's GDN
+    # recurrent state and conv tails); none in the ported models
+    unpageable_leaves: tuple = ()
+
+    def __init__(
+        self,
+        num_layers: int,
+        batch_size: int,
+        num_kv_heads: int,
+        max_length: int,
+        head_dim: int,
+        *,
+        page_size: int,
+        num_pages: int,
+        dtype: torch.dtype,
+        kv_quant: Optional[str] = None,
+        device: "torch.device | str | None" = None,
+    ):
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {kv_quant!r}")
+        dev = resolve_device(device)
+        dense = (batch_size, num_kv_heads, max_length, head_dim)
+        self.pools: dict[str, list[torch.Tensor]] = {}
+        for leaf in ("cached_key", "cached_value"):
+            shape = paged_pool_shape(dense, leaf, num_pages, page_size)
+            self.pools[leaf] = [
+                torch.zeros(shape, dtype=torch.int8 if kv_quant else dtype,
+                            device=dev)
+                for _ in range(num_layers)
+            ]
+            if kv_quant:
+                # one scale per slot's feature vector: the pool shape minus
+                # its feature dim, read through the same page table
+                self.pools[leaf + PAGED_SCALE_SUFFIX] = [
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+                    for _ in range(num_layers)
+                ]
+        self.pages_per_row = -(-max_length // page_size)
+        self.page_table = torch.zeros(
+            (batch_size, self.pages_per_row), dtype=torch.int32, device=dev)
+        self.index = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+        self.batch_size = batch_size
+        self.max_length = max_length
+        self.page_size = page_size
+        self.num_pages = num_pages
+        # bytes one page holds over every layer's pools (scales included),
+        # and what the dense layout would hold for the whole batch
+        self.page_bytes = sum(
+            x.nbytes for xs in self.pools.values() for x in xs) // num_pages
+        self.dense_bytes = (2 * num_layers * batch_size * num_kv_heads
+                            * max_length * head_dim * dtype.itemsize)
+        self._write = None  # memo of the current call's (page, offset)
+
+    def layer(self, i: int, t: int) -> LayerKVCache:
+        """Layer ``i``'s pools, the shared table and the (page, offset) the
+        next token of every row is written to (derived from the write index
+        and the table once, then shared by every layer)."""
+        if self._write is None:
+            self._write = _paged_slot(
+                self.page_table, self.index, self.page_size)
+        page, off = self._write
+        scale = self.pools.get("cached_key" + PAGED_SCALE_SUFFIX)
+        return LayerKVCache(
+            self.pools["cached_key"][i], self.pools["cached_value"][i],
+            self.index, off, page, page_table=self.page_table,
+            k_scale=None if scale is None else scale[i],
+            v_scale=(None if scale is None else
+                     self.pools["cached_value" + PAGED_SCALE_SUFFIX][i]),
+        )
+
+    def advance(self, t: int) -> None:
+        self.index.add_(t)
+        self._write = None
+
+    def pin_index(self, live: torch.Tensor) -> None:
+        """Pin dead/idle rows' write indices to 0 (in place)."""
+        self.index.mul_(live.to(self.index.dtype))
+        self._write = None
+
+    def pin_page_table(self, live: torch.Tensor) -> None:
+        """Pin dead/idle rows' page-table rows to the garbage page (in
+        place): a row that dies mid-chunk keeps running steps, and with its
+        index pinned to 0 it would otherwise write ``page_table[b, 0]`` — a
+        freed page or a SHARED prefix page."""
+        map_page_table(
+            self, lambda pt: pt * live[:, None].to(pt.dtype))
+        self._write = None
+
+    def set_page_table(self, table: torch.Tensor) -> None:
+        """Overwrite the device table with the host mirror ``table``
+        (pinned host memory: an asynchronous copy, no synchronization)."""
+        map_page_table(self, lambda _pt: table)
+        self._write = None
+
+    def reset_rows(self, row_mask: torch.Tensor, pos: torch.Tensor) -> None:
+        """Move the write index of the ``row_mask`` rows to ``pos`` (in
+        place): an admitted row resumes at the first token past its
+        prefix-cache hit, an evicted one at 0. Pools are shared and never
+        row-zeroed — stale page bytes lie behind the slot mask."""
+        self.index.copy_(torch.where(row_mask, pos.to(self.index.dtype),
+                                     self.index))
+        self._write = None
+
+
+def _paged_write_checks(start: torch.Tensor, t: int, mask) -> None:
+    """The paged cache is a serving-loop construct: one token per row per
+    step, no slot mask, per-row write indices. Anything else reaching a
+    paged module is a caller bug — fail loudly, not approximately."""
+    if t != 1:
+        raise NotImplementedError(
+            "paged decode caches serve single-token steps only (the "
+            "serving loop teacher-forces prompts token-by-token); got "
+            f"t={t}"
+        )
+    if mask is not None:
+        raise NotImplementedError(
+            "paged decode does not take a slot mask (paged rows are "
+            "never left-padded)"
+        )
+    if start.ndim == 0:
+        raise ValueError(
+            "paged decode needs per-row [B] write indices (the serving "
+            "loop seeds them); got a scalar cache index"
+        )
+
+
+def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of feature vectors: ``v [..., D]`` →
+    ``(int8 [..., D], f32 scale [...])`` with scale = absmax/127 per
+    leading index. An all-zero vector gets scale 0 and quantizes to exact
+    zeros (garbage-page writes stay harmless)."""
+    vf = v.float()
+    scale = vf.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(vf / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def _decode_cache_append_heads_major(
-    buf: torch.Tensor, value: torch.Tensor, cache: LayerKVCache
+    buf: torch.Tensor, value: torch.Tensor, cache: LayerKVCache,
+    scale_pool: Optional[torch.Tensor] = None,
 ) -> None:
     """Write ``value [B, T, H, D]`` at the cache's write slots of the
     heads-major buffer ``[B, H, S, D]``, IN PLACE. The slots stay on the
@@ -143,8 +325,22 @@ def _decode_cache_append_heads_major(
 
     Capacity contract: callers never feed more than ``S`` total tokens, and
     idle rows of a serving batch keep their index pinned in range — an index
-    past the end is a device-side fault, not a clamp."""
-    if cache.slots.ndim == 1:  # one shared write index
+    past the end is a device-side fault, not a clamp.
+
+    Paged: ``buf`` is a heads-major pool ``[P, H, page_size, D]`` and the one
+    new token of each row lands at its (page, offset); with ``scale_pool``
+    the pool is int8 and the token is quantized per (row, head) on the way
+    in, its scale landing in ``scale_pool [P, H, page_size]``."""
+    if cache.page_table is not None:
+        page, off = cache.rows, cache.slots
+        # advanced indices split by a slice: the target dims are [B, H, D]
+        if scale_pool is not None:
+            qv, sc = _quantize_rows(value[:, 0])  # [B,H,D] i8, [B,H] f32
+            buf[page, :, off, :] = qv
+            scale_pool[page, :, off] = sc
+        else:
+            buf[page, :, off, :] = value[:, 0]
+    elif cache.slots.ndim == 1:  # one shared write index
         buf.index_copy_(2, cache.slots, value.transpose(1, 2))
     else:  # per-row [B] write indices (continuous batching)
         # advanced indices split by a slice: result dims are [B, T, H, D]
@@ -377,14 +573,37 @@ class GroupedQueryAttention(nn.Module):
         kernel. A mask that is not of the key-validity form ``[B,1,1,S]``
         has no kernel: on the CPU it goes to :func:`eager_sdpa` with the
         slot mask, on a CUDA tensor it raises.
+
+        A paged cache (:class:`PagedDecodeCache`, the serving loop's paged
+        mode) takes single-token steps only: the token goes into its row's
+        page (quantized under ``kv_quant``) and the step attends the pools
+        through the paged flash-decode kernel.
         """
         s_max = self.decode_max_length
+        start = cache.index
+        if cache.page_table is not None:
+            # paged serving mode (loop/serve.py): one token per row per
+            # step, written into the pools and read back through the table
+            _paged_write_checks(start, t, mask)
+            _decode_cache_append_heads_major(
+                cache.k, k.to(self.dtype), cache, cache.k_scale)
+            _decode_cache_append_heads_major(
+                cache.v, v.to(self.dtype), cache, cache.v_scale)
+            return flash_decode_attention(
+                q, cache.k, cache.v,
+                start=start,
+                softmax_scale=self.softmax_scale,
+                window_size=self.window_size,
+                sinks=self.sinks,
+                page_table=cache.page_table,
+                k_scale=cache.k_scale,
+                v_scale=cache.v_scale,
+            )
         if cache.max_length != s_max:
             raise ValueError(
                 f"cache holds {cache.max_length} slots, module was built "
                 f"with decode_max_length={s_max}"
             )
-        start = cache.index
         _decode_cache_append_heads_major(cache.k, k.to(self.dtype), cache)
         _decode_cache_append_heads_major(cache.v, v.to(self.dtype), cache)
         if t > 1 and not in_continuation_chunk():

@@ -1,14 +1,15 @@
-"""Flash-decode attention over a heads-major KV slot cache: the CUDA
-kernel's wrapper and its plain PyTorch version.
+"""Flash-decode attention over a heads-major KV slot cache or over page
+pools: the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Counterpart of ``d9d_tpu/ops/attention/pallas_decode.py`` in its contiguous
-mode (``_decode_kernel`` / ``_decode_call`` / ``flash_decode_attention``).
-The kernel itself is ``d9d_tpu_torch/csrc/flash_decode.cu``.
+Counterpart of ``d9d_tpu/ops/attention/pallas_decode.py``: the contiguous
+mode (``_decode_kernel`` / ``_decode_call``) and the paged mode with its
+int8 pools (``_paged_decode_kernel`` / ``_paged_decode_call``), both behind
+``flash_decode_attention``. The kernels are ``d9d_flash_decode`` and
+``d9d_flash_paged_decode`` of ``d9d_tpu_torch/csrc/flash_decode.cu``.
 
-Dispatch: a tensor on the CPU takes :func:`flash_decode_plain`; a CUDA tensor
-launches the kernel or raises. The paged (``page_table``) and quantized
-(``k_scale`` / ``v_scale``) modes of the JAX function are not ported yet and
-raise ``NotImplementedError``.
+Dispatch: a tensor on the CPU takes the plain version
+(:func:`flash_decode_plain`, :func:`flash_decode_paged_plain`); a CUDA tensor
+launches the kernel or raises.
 """
 
 import ctypes
@@ -203,6 +204,194 @@ flash_decode.launches = 0     # kernel launches (CUDA path only)
 flash_decode.plain_calls = 0  # plain-version calls (CPU tensors only)
 
 
+def gather_pages_heads_major(
+    pool: torch.Tensor, page_table: torch.Tensor
+) -> torch.Tensor:
+    """Contiguous per-row view of a heads-major page pool: ``[P, H, ps, D]``
+    gathered through ``[B, n]`` → ``[B, H, n·ps, D]``, slot order kept (the
+    counterpart of ``_gather_pages_heads_major`` in
+    ``d9d_tpu/nn/attention.py``, the JAX package's eager paged oracle)."""
+    g = pool[page_table.long()]  # [B, n, H, ps, D]
+    b, n, h, ps, d = g.shape
+    return g.transpose(1, 2).reshape(b, h, n * ps, d)
+
+
+def gather_pages_heads_major_quant(
+    pool: torch.Tensor, scale_pool: torch.Tensor, page_table: torch.Tensor,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Quantized sibling of :func:`gather_pages_heads_major`: gather the int8
+    pool and its ``[P, H, ps]`` scale pool through the same table, widen
+    ``int8 * scale`` per slot in fp32, return the dense view in ``dtype``."""
+    pt = page_table.long()
+    g = pool[pt].float() * scale_pool[pt][..., None]  # [B, n, H, ps, D]
+    b, n, h, ps, d = g.shape
+    return g.to(dtype).transpose(1, 2).reshape(b, h, n * ps, d)
+
+
+def flash_decode_paged_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    *,
+    start: torch.Tensor,
+    page_table: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    softmax_scale: float | None = None,
+    window_size: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the paged flash-decode kernel: the visible
+    cache gathered from the pools ``[P, Hkv, ps, D]`` through
+    ``page_table [B, n_pages]`` (int8 pools dequantized by their
+    ``[P, Hkv, ps]`` scales in fp32), then :func:`flash_decode_plain`'s
+    mask, fp32 softmax and product — the reference kernel's order. Every
+    slot of the ``n_pages·ps`` gathered ones is addressable."""
+    if k_scale is not None:
+        kc = gather_pages_heads_major_quant(
+            k_pool, k_scale, page_table, torch.float32)
+        vc = gather_pages_heads_major_quant(
+            v_pool, v_scale, page_table, torch.float32)
+    else:
+        kc = gather_pages_heads_major(k_pool, page_table)
+        vc = gather_pages_heads_major(v_pool, page_table)
+    return flash_decode_plain(
+        q, kc, vc, start=start, softmax_scale=softmax_scale,
+        window_size=window_size,
+    )
+
+
+def _check_paged_inputs(q, k_pool, v_pool, page_table, k_scale, v_scale):
+    """The paged kernel's shape / dtype / layout contract; returns
+    ``(dtype code, kv_int8)``."""
+    b, _, hq, d = q.shape
+    if k_pool.ndim != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != d:
+        raise ValueError(
+            f"flash_decode_paged: pools must be [P,Hkv,page_size,D], got "
+            f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}"
+        )
+    if page_table.ndim != 2 or page_table.shape[0] != b:
+        raise ValueError(
+            f"flash_decode_paged: page_table must be [B, n_pages] with B={b}, "
+            f"got {tuple(page_table.shape)}"
+        )
+    if hq % k_pool.shape[1] != 0:
+        raise ValueError(
+            f"query heads {hq} not a multiple of kv heads {k_pool.shape[1]}")
+    if k_scale is None:
+        code = _check_kernel_inputs(
+            "flash_decode_paged", {"q": q, "k_pool": k_pool, "v_pool": v_pool},
+            d)
+        return code, 0
+    code = _check_kernel_inputs("flash_decode_paged", {"q": q}, d)
+    for label, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if pool.dtype != torch.int8 or not pool.is_contiguous() \
+                or pool.device != q.device:
+            raise TypeError(
+                f"flash_decode_paged: with scales, {label} must be a "
+                f"contiguous int8 pool on {q.device}, got {pool.dtype} on "
+                f"{pool.device}"
+            )
+    for label, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.dtype != torch.float32 or sc.shape != k_pool.shape[:3] \
+                or not sc.is_contiguous() or sc.device != q.device:
+            raise TypeError(
+                f"flash_decode_paged: {label} must be a contiguous float32 "
+                f"[P,Hkv,page_size] = {tuple(k_pool.shape[:3])} on {q.device}"
+            )
+    return code, 1
+
+
+def flash_decode_paged(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    *,
+    start: torch.Tensor,
+    page_table: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    softmax_scale: float | None = None,
+    window_size: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Paged flash-decode attention → ``(o [B,T,Hq,D], lse [B,Hq,T] fp32)``.
+
+    CUDA tensors launch ``d9d_flash_paged_decode`` (``csrc/flash_decode.cu``)
+    on the current stream and raise on anything the kernel does not take;
+    CPU tensors take :func:`flash_decode_paged_plain`.
+    ``flash_decode_paged.launches`` moves only where the kernel is launched.
+    The page ids are not read back: every entry must name a page of the
+    pools (the serving loop's idle rows name the garbage page 0).
+    """
+    if q.device.type == "cpu":
+        flash_decode_paged.plain_calls += 1
+        return flash_decode_paged_plain(
+            q, k_pool, v_pool, start=start, page_table=page_table,
+            k_scale=k_scale, v_scale=v_scale, softmax_scale=softmax_scale,
+            window_size=window_size,
+        )
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"flash_decode_paged: no kernel for device {q.device}; tensors "
+            f"must lie on a CUDA device (kernel) or the CPU (plain version)"
+        )
+    code, kv_int8 = _check_paged_inputs(
+        q, k_pool, v_pool, page_table, k_scale, v_scale)
+    b, t, hq, d = q.shape
+    hkv, ps = k_pool.shape[1], k_pool.shape[2]
+    n_pages = page_table.shape[1]
+    s = n_pages * ps
+    scale = softmax_scale if softmax_scale is not None else d**-0.5
+    offsets = _broadcast_start(start, b, q.device)
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+
+    from d9d_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load()
+    rows = (hq // hkv) * t
+    row_tile, align = ctypes.c_int(), ctypes.c_int()
+    kernel_lib.check_launch(
+        lib.d9d_flash_paged_decode_tiling(
+            rows, ctypes.byref(row_tile), ctypes.byref(align)),
+        "flash_decode_paged tiling query",
+    )
+    n_splits, split_len = decode_split(
+        b, hkv, rows, s, row_tile.value, align.value)
+    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    o_part = lse_part = None
+    if n_splits > 1:
+        o_part = torch.empty(
+            (b * hkv, n_splits, rows, d), dtype=torch.float32, device=q.device)
+        lse_part = torch.empty(
+            (b * hkv, n_splits, rows), dtype=torch.float32, device=q.device)
+
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.d9d_flash_paged_decode(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+            None if o_part is None else o_part.data_ptr(),
+            None if lse_part is None else lse_part.data_ptr(),
+            b, t, hq, hkv, ps, n_pages, d, code, kv_int8,
+            q.stride(0), q.stride(1), q.stride(2),
+            k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+            v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
+            o.stride(0), o.stride(1), o.stride(2),
+            float(scale), -1 if window_size is None else int(window_size),
+            n_splits, split_len, stream,
+        )
+    kernel_lib.check_launch(code, "flash_decode_paged")
+    flash_decode_paged.launches += 1
+    return o, lse
+
+
+flash_decode_paged.launches = 0     # kernel launches (CUDA path only)
+flash_decode_paged.plain_calls = 0  # plain-version calls (CPU tensors only)
+
+
 def flash_decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -228,21 +417,37 @@ def flash_decode_attention(
     denominator through the outside-the-kernel correction. A query row whose
     every key is masked yields exact zeros. Forward-only.
 
-    ``page_table`` (paged pools) and ``k_scale`` / ``v_scale`` (int8 pools)
-    are not ported yet and raise ``NotImplementedError``.
+    PAGED mode (``page_table [B, n_pages]`` set): ``k/v`` are page pools
+    ``[P, Hkv, page_size, D]`` and row ``b``'s logical key block ``ki`` is
+    pool page ``page_table[b, ki]``; every one of the ``n_pages·page_size``
+    gathered slots is addressable. ``kv_valid`` does not compose with paging
+    (the serving loop's paged rows are never left-padded). QUANTIZED paged
+    mode (``k_scale`` / ``v_scale [P, Hkv, page_size]`` set): int8 pools,
+    each slot dequantized by its f32 scale inside the fp32 accumulation.
     """
     if page_table is not None:
-        raise NotImplementedError(
-            "paged flash-decode (page_table) is not ported yet"
+        if kv_valid is not None:
+            raise NotImplementedError(
+                "paged decode does not take kv_valid (the serving loop's "
+                "paged rows are never left-padded)"
+            )
+        if (k_scale is None) != (v_scale is None):
+            raise ValueError("k_scale and v_scale must be set together")
+        o, lse = flash_decode_paged(
+            q, k_cache, v_cache, start=start, page_table=page_table,
+            k_scale=k_scale, v_scale=v_scale, softmax_scale=softmax_scale,
+            window_size=window_size,
         )
-    if k_scale is not None or v_scale is not None:
+    elif k_scale is not None or v_scale is not None:
         raise NotImplementedError(
-            "quantized flash-decode (k_scale / v_scale) is not ported yet"
+            "k_scale/v_scale are paged-mode arguments (quantized pools need "
+            "a page_table)"
         )
-    o, lse = flash_decode(
-        q, k_cache, v_cache, start=start, softmax_scale=softmax_scale,
-        window_size=window_size, kv_valid=kv_valid,
-    )
+    else:
+        o, lse = flash_decode(
+            q, k_cache, v_cache, start=start, softmax_scale=softmax_scale,
+            window_size=window_size, kv_valid=kv_valid,
+        )
     if sinks is not None:
         # sink joins only the denominator: o' = o / (1 + exp(sink - lse))
         z = torch.clamp(sinks.float()[None, :, None] - lse, max=60.0)
@@ -253,26 +458,45 @@ def flash_decode_attention(
 
 def flash_decode_bytes(
     start: torch.Tensor, t: int, b: int, hq: int, hkv: int, d: int,
-    itemsize: int, window_size: int | None = None,
+    itemsize: int, window_size: int | None = None, *,
+    page_size: int | None = None, n_pages: int = 0,
+    kv_itemsize: int | None = None, quant: bool = False,
 ) -> float:
     """Bytes one call must move for these write indices: the visible cache
     slots of every (row, kv head) read once for k and once for v, q read
     and o written once. Reads ``start`` back to the host — for measurement
-    scripts, never for the serving path."""
+    scripts, never for the serving path.
+
+    Paged (``page_size`` set): the cache is read in whole pages, so every
+    page holding a visible slot counts, at ``kv_itemsize`` bytes an element
+    (int8: 1), with its f32 scales when ``quant``; the ``[B, n_pages]``
+    int32 page table is read once."""
     offs = torch.as_tensor(start).reshape(-1).to(torch.int64).cpu()
     if offs.numel() == 1:
         offs = offs.expand(b)
     seen = offs + t
     if window_size is not None:
         seen = torch.minimum(seen, torch.full_like(seen, window_size + t - 1))
-    cache = float(seen.sum()) * hkv * d * 2 * itemsize
     qo = 2.0 * b * t * hq * d * itemsize
-    return cache + qo
+    if page_size is None:
+        return float(seen.sum()) * hkv * d * 2 * itemsize + qo
+    last = offs + t - 1  # each row's last visible slot
+    first = last - seen + 1
+    pages = float((last // page_size - first // page_size + 1).sum())
+    slot_bytes = d * (itemsize if kv_itemsize is None else kv_itemsize)
+    if quant:
+        slot_bytes += 4
+    cache = pages * page_size * hkv * 2 * slot_bytes
+    return cache + qo + 4.0 * b * n_pages
 
 
 __all__ = [
     "flash_decode",
     "flash_decode_plain",
+    "flash_decode_paged",
+    "flash_decode_paged_plain",
+    "gather_pages_heads_major",
+    "gather_pages_heads_major_quant",
     "flash_decode_attention",
     "decode_split",
     "flash_decode_bytes",

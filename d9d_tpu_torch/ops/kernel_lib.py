@@ -74,6 +74,22 @@ _SIGNATURES = {
         _I, _I,                      # n_splits, split_len
         _P,                          # stream
     ],
+    "d9d_flash_paged_decode": [
+        _P, _P, _P,                  # q, k_pool, v_pool
+        _P, _P,                      # k_scale, v_scale (int8 pools; nullable)
+        _P, _P,                      # o, lse
+        _P, _P,                      # offsets [B], page_table [B, n_pages]
+        _P, _P,                      # o_part, lse_part scratch (nullable)
+        _I, _I, _I, _I, _I, _I, _I,  # B, T, Hq, Hkv, page_size, n_pages, D
+        _I, _I,                      # dtype, kv_int8
+        _L, _L, _L,                  # q strides (batch, token, head)
+        _L, _L, _L,                  # k pool strides (page, head, slot)
+        _L, _L, _L,                  # v pool strides (page, head, slot)
+        _L, _L, _L,                  # o strides (batch, token, head)
+        _F, _I,                      # scale, window (-1 = none)
+        _I, _I,                      # n_splits, split_len
+        _P,                          # stream
+    ],
     "d9d_moe_ffn": [
         _P, _P, _P, _P,              # a (rows or x), probs, gid, pair_src
         _P, _P, _P, _P,              # wg, wu, wd, out
@@ -86,6 +102,11 @@ _SIGNATURES = {
 _QUERIES = {
     "d9d_flash_decode_tiling": [
         _I, _I,                      # dtype, query rows per kv head
+        ctypes.POINTER(_I),          # out: query rows per block
+        ctypes.POINTER(_I),          # out: granularity of split_len
+    ],
+    "d9d_flash_paged_decode_tiling": [
+        _I,                          # query rows per kv head
         ctypes.POINTER(_I),          # out: query rows per block
         ctypes.POINTER(_I),          # out: granularity of split_len
     ],

@@ -152,14 +152,23 @@ def test_fully_masked_row_is_exact_zeros_like_pallas(jax_run):
 
 
 def test_decode_not_ported_modes_raise():
+    """The argument combinations the JAX function itself refuses
+    (``pallas_decode.py:408-414,435-438``): paged with ``kv_valid``, a lone
+    ``k_scale``, a scale without a page table; and a query head count that
+    is not a multiple of the kv heads."""
     q, kc, vc = map(_t, _inputs(1))
     start = torch.tensor(3)
+    table = torch.ones(B, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="kv_valid"):
+        tdec.flash_decode_attention(q, kc, vc, start=start, page_table=table,
+                                    kv_valid=torch.ones(B, S))
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        tdec.flash_decode_attention(q, kc, vc, start=start, page_table=table,
+                                    k_scale=torch.zeros(B, HKV, S))
     with pytest.raises(NotImplementedError, match="page_table"):
         tdec.flash_decode_attention(q, kc, vc, start=start,
-                                    page_table=torch.zeros(B, 2))
-    with pytest.raises(NotImplementedError, match="k_scale"):
-        tdec.flash_decode_attention(q, kc, vc, start=start,
-                                    k_scale=torch.zeros(1))
+                                    k_scale=torch.zeros(1),
+                                    v_scale=torch.zeros(1))
     with pytest.raises(ValueError, match="not a multiple"):
         tdec.flash_decode_plain(q[:, :, :3], kc, vc, start=start)
 

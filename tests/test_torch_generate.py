@@ -332,10 +332,23 @@ def test_batcher_validation_and_unported_modes(pair):
         ContinuousBatcher(tm, batch_size=2, chunk_size=0)
     with pytest.raises(ValueError, match="Generator"):
         ContinuousBatcher(tm, batch_size=2, temperature=0.5)
-    with pytest.raises(NotImplementedError, match="paged"):
-        ContinuousBatcher(tm, batch_size=2, page_size=16)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
+    # the paged-mode argument checks of the JAX batcher (serve.py:531-551)
+    with pytest.raises(ValueError, match="page_size must be >= 1"):
+        ContinuousBatcher(tm, batch_size=2, page_size=0)
+    with pytest.raises(ValueError, match="need paged mode"):
+        ContinuousBatcher(tm, batch_size=2, num_pages=8)
+    with pytest.raises(ValueError, match="need paged mode"):
+        ContinuousBatcher(tm, batch_size=2, prefix_cache=False)
+    with pytest.raises(ValueError, match="kv_quant needs paged mode"):
         ContinuousBatcher(tm, batch_size=2, kv_quant="int8")
+    with pytest.raises(ValueError, match="kv_quant must be None or 'int8'"):
+        ContinuousBatcher(tm, batch_size=2, page_size=8, kv_quant="fp8")
+    # still to port (ROADMAP A10)
+    paged = ContinuousBatcher(tm, batch_size=2, page_size=8)
+    with pytest.raises(NotImplementedError, match="export_kv_pages"):
+        paged.export_kv_pages(0)
+    with pytest.raises(NotImplementedError, match="import_kv_pages"):
+        paged.import_kv_pages(None)
     sampled = ContinuousBatcher(tm, batch_size=2, temperature=0.8,
                                 generator=torch.Generator().manual_seed(0))
     rid = sampled.submit([3, 4], max_new_tokens=5)

@@ -84,6 +84,8 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/ops/moe_ffn.py",
         "d9d_tpu_torch/nn/moe.py",
         "d9d_tpu_torch/models/qwen3/moe.py",
+        "d9d_tpu_torch/loop/kv_paging.py",
+        "d9d_tpu_torch/nn/decode_flags.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {

@@ -330,6 +330,29 @@ def test_unported_config_fields_raise(field, value):
         TrainerConfig(**kw, **{field: value})
 
 
+# TrainerConfig defaults that differ from the JAX package's (ROADMAP C2):
+# each turns on a feature the port does not have yet, so the port keeps it
+# off; the reference's default comes back when the feature is ported
+_DIVERGENT_DEFAULTS = {
+    "handle_preemption": (False, True),
+    "prefetch_batches": (0, 2),
+    "telemetry_console": (False, True),
+}
+
+
+def test_trainer_config_defaults_match_jax_except_the_pinned_three():
+    """Every field both configs have carries the reference's default,
+    except exactly the three pinned above; a fourth divergence fails."""
+    port = {f.name: f.default for f in dataclasses.fields(TrainerConfig)
+            if f.default is not dataclasses.MISSING}
+    ref = {name: f.default for name, f in JTrainerConfig.model_fields.items()
+           if not f.is_required()}
+    differ = {name: (port[name], ref[name]) for name in port
+              if name in ref and port[name] != ref[name]}
+    assert differ == _DIVERGENT_DEFAULTS
+    assert set(port) <= set(ref), set(port) - set(ref)
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="StochasticAdamW"):
         build_optimizer(StochasticAdamWConfig(), [], 1e-3)
