@@ -20,6 +20,10 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    (dq, dk/dv, fused) and the three MoE expert-FFN kernels (aligned, gather,
    gather+combine), the last two families with negative controls for their
    bf16 rules; the flash kernels also at Qwen3-30B-A3B's GQA group (g = 8);
+   the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
+   and 151936 x 4096 elements (±0, denormals, ±inf, NaNs, the largest
+   finite values), with its rule checked at 2^24 draws per fraction and a
+   round-to-nearest negative control;
 4. small end-to-end agreement — serving: a narrow fp32 model on the card
    (through the kernels) against the same weights on the CPU (through the
    plain versions): greedy tokens identical, logits within tolerance; the
@@ -28,7 +32,9 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    of a narrow fp32 model on the card against 3 on the CPU, loss and grad
    norm per step within tolerance, and a step with the fused backward
    against the split one; the same for a narrow fp32 Qwen3-MoE model, once
-   for each expert-FFN kernel;
+   for each expert-FFN kernel; one ``StochasticAdamW`` step on the card
+   against the CPU (bf16 parameters, fp32 moments and gradients), then 3
+   ``Trainer`` steps of narrow dense and MoE models with bf16 parameters;
 5. full width, serving — Qwen3-8B (36 layers, random seeded bf16 weights):
    ``generate`` on a ragged batch with chunked prefill, then a
    ``ContinuousBatcher`` that drains 12 requests; then paged serving on the
@@ -44,7 +50,12 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
 7. full width, MoE training — Qwen3-30B-A3B widths at 4 of its 48 layers
    (128 experts, top-8; same setup): 6 ``Trainer.train`` steps with the
    aligned expert-FFN kernel, a profiled step, then 2 steps each of fresh
-   trainers with the gather and the gather+combine kernels.
+   trainers with the gather and the gather+combine kernels;
+8. full width, bf16 parameters — Qwen3-8B widths at 8 layers with bf16
+   parameters (layer norms fp32) under ``StochasticAdamW``: 6 steps, a
+   profiled step, 2 steps of a fresh trainer with bf16 moments; then
+   Qwen3-30B-A3B widths at 4 layers, 2 steps. Every rounding of a
+   parameter or bf16 moment goes through the stochastic-rounding kernel.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -1091,6 +1102,158 @@ def _moe_library_chain(x, w, probs, sort):
     return time_ms(chain, iters=10, warmup=2), info
 
 
+# Stochastic rounding (B10) vs its plain version: bitwise. Both compute the
+# same counter-hash bits from (seed, element index) and the same integer
+# rule, so any differing bit is a fault. The semantic checks hold the rule
+# itself at 2^24 draws: the share of elements rounded up estimates the
+# position of x between its bf16 neighbours with standard deviation at most
+# sqrt(0.25 / 2^24) = 1.2e-4, so 5e-4 is four of them; round-to-nearest
+# must fail the same check (its share is 0 or 1).
+SR_SHARE_TOL = 5e-4
+SR_DRAWS = 2 ** 24
+# fp32 bit patterns placed first in every input: ±0, denormals, ±inf, NaNs
+# (quiet, signalling, negative), the largest finite values (which may round
+# up to inf, as the JAX rule does) and values exact in bf16
+SR_SPECIAL_BITS = (0x00000000, 0x80000000, 0x00000001, 0x807FFFFF,
+                   0x00400000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                   0x7F800001, 0xFFFFFFFF, 0x7F7FFFFF, 0xFF7FFFFF,
+                   0x7F7F8000, 0x3F800000, 0xC0000000)
+
+
+def _sr_input(shape, gen):
+    x = torch.randn(shape, device="cuda", generator=gen)
+    flat = x.view(-1)
+    special = torch.tensor(SR_SPECIAL_BITS, dtype=torch.int64)
+    special = torch.where(special >= 2 ** 31, special - 2 ** 32, special)
+    k = min(len(SR_SPECIAL_BITS), flat.numel())
+    flat[:k] = special[:k].to(torch.int32).view(torch.float32).cuda()
+    return x
+
+
+def _sr_share_ok(fn):
+    """The rounding rule at SR_DRAWS draws per fraction: lands on the two
+    neighbours of 1 + f*2^-7 and rounds up a share f of the time."""
+    lo, step = 1.0, 2.0 ** -7
+    shares = {}
+    ok = True
+    for f in (0.125, 0.25, 0.5, 0.75):
+        x = torch.full((SR_DRAWS,), lo + f * step, device="cuda")
+        out = fn(x, f).float()
+        up = out == lo + step
+        on_grid = bool((up | (out == lo)).all())
+        shares[f] = float(up.double().mean())
+        ok = ok and on_grid and abs(shares[f] - f) <= SR_SHARE_TOL
+    return ok, shares
+
+
+def check_stochastic_round(gen):
+    from d9d_tpu_torch.ops.stochastic import (
+        fold_seed,
+        stochastic_round_to_bf16,
+        stochastic_round_to_bf16_plain,
+    )
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    cases = []
+    seed = fold_seed(0, 1, 0, 0)
+    timed = {}
+    for shape in ((1,), (1000003,), (4096, 12288), (151936, 4096)):
+        x = _sr_input(shape, gen)
+        got = stochastic_round_to_bf16(x, seed)
+        torch.cuda.synchronize()
+        want = stochastic_round_to_bf16_plain(x, seed)
+        differ = int((bits(got) != bits(want)).sum())
+        finite = torch.isfinite(want)
+        err = max_err(got[finite], want[finite]) if bool(finite.any()) else 0.0
+        if differ:
+            raise AssertionError(
+                f"stochastic_round {list(shape)}: {differ} elements differ "
+                f"from the plain version")
+        case = {"shape": list(shape), "differing_bits": differ,
+                "max_abs_err": err}
+        if x.numel() >= 4096 * 12288:
+            n = x.numel()
+            case.update(
+                ms=time_ms(lambda: stochastic_round_to_bf16(x, seed),
+                           iters=10, warmup=2),
+                plain_ms=time_ms(
+                    lambda: stochastic_round_to_bf16_plain(x, seed),
+                    iters=2, warmup=1),
+                cast_ms=time_ms(lambda: x.to(torch.bfloat16), iters=10,
+                                warmup=2),
+                bound_ms=1e3 * 6 * n / H100_BYTES_PER_S)
+            timed[shape] = case
+        cases.append(case)
+        del x, got, want, finite
+        torch.cuda.empty_cache()
+
+    # the vector path needs 16-byte aligned input and 8-byte aligned output;
+    # shifted views take the element-wise path, and write in place
+    x = _sr_input((4099,), gen)
+    buf = torch.empty(4100, dtype=torch.float32, device="cuda")
+    buf[1:] = x
+    out = torch.zeros(4100, dtype=torch.bfloat16, device="cuda")
+    got = stochastic_round_to_bf16(buf[1:], seed, out=out[1:])
+    want = stochastic_round_to_bf16_plain(x, seed)
+    if got.data_ptr() != out[1:].data_ptr() or not torch.equal(
+            bits(out[1:]), bits(want)) or bits(out)[0] != 0:
+        raise AssertionError("stochastic_round: unaligned views differ")
+    cases.append({"shape": [4099], "case": "unaligned in and out, in place",
+                  "differing_bits": 0})
+
+    ok, shares = _sr_share_ok(
+        lambda x, f: stochastic_round_to_bf16(x, fold_seed(9, int(8 * f))))
+    rtn_ok, rtn_shares = _sr_share_ok(lambda x, f: x.to(torch.bfloat16))
+    if not ok or rtn_ok:
+        raise AssertionError(
+            f"stochastic_round shares {shares} (want within {SR_SHARE_TOL}), "
+            f"round-to-nearest control {rtn_shares} must fail")
+    exact = torch.randn(SR_DRAWS, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    nonfinite = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                             device="cuda")
+    y = stochastic_round_to_bf16(nonfinite, seed).float()
+    if not (torch.equal(stochastic_round_to_bf16(exact.float(), seed), exact)
+            and y[0] == float("inf") and y[1] == float("-inf")
+            and bool(torch.isnan(y[2]))):
+        raise AssertionError("stochastic_round: exact or non-finite values "
+                             "changed")
+    x = torch.randn(1 << 20, device="cuda", generator=gen)
+    a = bits(stochastic_round_to_bf16(x, seed))
+    same = torch.equal(a, bits(stochastic_round_to_bf16(x, seed)))
+    other = {f"count{c}_leaf{l}_role{r}":
+             float((a != bits(stochastic_round_to_bf16(
+                 x, fold_seed(0, c, l, r)))).double().mean())
+             for c, l, r in ((2, 0, 0), (1, 1, 0), (1, 0, 1), (1, 0, 2))}
+    if not same or min(other.values()) < 0.2:
+        raise AssertionError(f"stochastic_round seeds: same seed same bits "
+                             f"{same}, share differing {other}")
+
+    main = timed[(4096, 12288)]
+    return {
+        "name": "stochastic_round", "route": "cuda",
+        "source": "d9d_tpu_torch/csrc/stochastic.cu",
+        "replaces": "d9d_tpu/ops/stochastic.py:85",
+        "max_abs_err": max(c.get("max_abs_err", 0.0) for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "cast_ms": main["cast_ms"],
+        "ms_embedding_leaf": timed[(151936, 4096)]["ms"],
+        "bound_ms_embedding_leaf": timed[(151936, 4096)]["bound_ms"],
+    }, {
+        "cases": cases, "tolerance": "bitwise",
+        "timed_shape": [4096, 12288],
+        "shares_up": shares, "share_tol": SR_SHARE_TOL, "draws": SR_DRAWS,
+        "round_to_nearest_control_shares": rtn_shares,
+        "same_seed_same_bits": same, "share_differing_by_seed": other,
+        "library": "none: no single PyTorch call rounds stochastically; "
+                   "cast_ms is x.to(bfloat16), round to nearest, the same "
+                   "bytes",
+    }
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1, detail1 = check_flash_fwd(gen)
@@ -1106,7 +1269,10 @@ def phase_kernels():
     moe, detail4 = check_moe_ffn(gen)
     say(phase="kernels", kernel="moe_ffn", **detail4)
     torch.cuda.empty_cache()
-    return [k1, k2, k9, *bwd, *moe]
+    k10, detail10 = check_stochastic_round(gen)
+    say(phase="kernels", kernel="stochastic_round", **detail10)
+    torch.cuda.empty_cache()
+    return [k1, k2, k9, *bwd, *moe, k10]
 
 
 # ---------------------------------------------------------------------------
@@ -1115,7 +1281,7 @@ def phase_kernels():
 
 KERNEL_NAMES = ("flash_fwd", "flash_decode", "flash_decode_paged",
                 "flash_bwd_dq", "flash_bwd_dkv",
-                "flash_bwd_fused") + MOE_KERNELS
+                "flash_bwd_fused") + MOE_KERNELS + ("stochastic_round",)
 
 
 def _moe_wrappers():
@@ -1136,9 +1302,10 @@ def reset_counters(model=None):
         flash_attention_bwd,
     )
     from d9d_tpu_torch.ops.moe import group_sizes_on_host
+    from d9d_tpu_torch.ops.stochastic import stochastic_round_to_bf16
 
     for fn in (flash_attention, flash_decode, flash_decode_paged,
-               *_moe_wrappers().values()):
+               stochastic_round_to_bf16, *_moe_wrappers().values()):
         fn.launches = 0
         fn.plain_calls = 0
     for name in ("dq_launches", "dkv_launches", "fused_launches",
@@ -1149,7 +1316,7 @@ def reset_counters(model=None):
         model.sdpa.eager_calls = 0
 
 
-def read_counters(model):
+def read_counters(model=None):
     """Kernel launches by name, the plain-version and eager calls (0 on a
     card path), and the MoE backward's group-size readbacks."""
     from d9d_tpu_torch.ops.attention.decode import (
@@ -1161,6 +1328,7 @@ def read_counters(model):
         flash_attention_bwd,
     )
     from d9d_tpu_torch.ops.moe import group_sizes_on_host
+    from d9d_tpu_torch.ops.stochastic import stochastic_round_to_bf16
 
     moe = _moe_wrappers()
     out = {
@@ -1172,11 +1340,13 @@ def read_counters(model):
         "flash_bwd_fused": flash_attention_bwd.fused_launches,
     }
     out.update({name: fn.launches for name, fn in moe.items()})
+    out["stochastic_round"] = stochastic_round_to_bf16.launches
     out["plain_calls"] = (flash_attention.plain_calls + flash_decode.plain_calls
                           + flash_decode_paged.plain_calls
                           + flash_attention_bwd.plain_calls
+                          + stochastic_round_to_bf16.plain_calls
                           + sum(fn.plain_calls for fn in moe.values()))
-    out["eager_calls"] = model.sdpa.eager_calls
+    out["eager_calls"] = model.sdpa.eager_calls if model is not None else 0
     out["moe_readbacks"] = group_sizes_on_host.readbacks
     return out
 
@@ -1613,15 +1783,17 @@ def _train_parts():
         """The model on the context's device; weights from ``state`` when
         given, else drawn from ``seed`` on that device."""
 
-        def __init__(self, cfg, dtype, fused_bwd, state=None, seed=0):
+        def __init__(self, cfg, dtype, fused_bwd, state=None, seed=0,
+                     param_dtype=torch.float32):
             self.cfg, self.dtype, self.fused_bwd = cfg, dtype, fused_bwd
             self.state, self.seed = state, seed
+            self.param_dtype = param_dtype
 
         def build_module(self, ctx):
             model = Qwen3DenseCausalLM(
                 self.cfg, build_sdpa_backend(
                     SdpaFlashConfig(fused_bwd=self.fused_bwd)),
-                dtype=self.dtype, param_dtype=torch.float32,
+                dtype=self.dtype, param_dtype=self.param_dtype,
                 device=ctx.device,
                 seed=None if self.state is not None else self.seed)
             if self.state is not None:
@@ -1870,7 +2042,8 @@ def phase_full_width_train():
 # Qwen3-MoE training: small end-to-end agreement, then full width
 
 
-def _moe_provider(cfg, dtype, moe_ffn, state=None, seed=0):
+def _moe_provider(cfg, dtype, moe_ffn, state=None, seed=0,
+                  param_dtype=torch.float32):
     from d9d_tpu_torch.loop import ModelProvider
     from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM
 
@@ -1880,7 +2053,7 @@ def _moe_provider(cfg, dtype, moe_ffn, state=None, seed=0):
 
         def build_module(self, ctx):
             model = Qwen3MoeCausalLM(
-                cfg, moe_ffn=moe_ffn, dtype=dtype, param_dtype=torch.float32,
+                cfg, moe_ffn=moe_ffn, dtype=dtype, param_dtype=param_dtype,
                 device=ctx.device, seed=None if state is not None else seed)
             if state is not None:
                 model.load_state_dict(state)
@@ -2083,6 +2256,325 @@ def phase_full_width_train_moe():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training with bf16 parameters (StochasticAdamW): small end-to-end
+# agreement, then full width
+
+
+def _stochastic_adamw_provider(**kw):
+    from d9d_tpu_torch.loop import (
+        OptimizerProvider,
+        StochasticAdamWConfig,
+        build_optimizer,
+    )
+
+    class Provider(OptimizerProvider):
+        def build(self, params, learning_rate):
+            return build_optimizer(StochasticAdamWConfig(**kw), params,
+                                   learning_rate)
+
+    return Provider()
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of the bf16 spacing at the larger magnitude."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    return (got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _state_bytes(trainer):
+    """Parameters, optimizer moments and fp32 gradient accumulators (one
+    fp32 value per trainable parameter during the step)."""
+    params = [p for p in trainer.module.parameters() if p.requires_grad]
+    opt = trainer.optimizer
+    return {"params": sum(p.numel() * p.element_size() for p in params),
+            "moments": sum(m.numel() * m.element_size()
+                           for m in opt.mu + opt.nu),
+            "grad_accumulators": sum(4 * p.numel() for p in params)}
+
+
+def _n_bf16(module):
+    return sum(p.dtype == torch.bfloat16 for p in module.parameters())
+
+
+# Card vs CPU, one StochasticAdamW step from the same bf16 parameters, fp32
+# moments and fp32 gradients. The fp32 arithmetic is the same elementwise
+# chain on both sides; it may differ where a compiler contracts a multiply
+# and an add into one FMA, by an fp32 ulp of the larger term, so moments are
+# held to rtol 1e-6 of themselves plus 1e-6 of the leaf's largest value (a
+# moment that cancels to near 0 keeps the error of its terms). Both sides
+# round the new fp32 parameter with the same bits, so a parameter differs
+# only where the fp32 values straddle a rounding threshold: at most one bf16
+# ulp; 2 are allowed.
+OPT_MOMENT_RTOL = 1e-6
+OPT_PARAM_ULPS = 2
+# Card vs CPU, 3 Trainer steps of a narrow model with bf16 parameters (fp32
+# compute): the fp32 tolerance of the fp32 small train (products and sums in
+# other orders); the roundings use the same bits on both sides.
+BF16_TRAIN_TOL = 1e-4
+
+
+def phase_small_e2e_train_bf16():
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.loop import CausalLMTask, Trainer, TrainerConfig
+    from d9d_tpu_torch.models.qwen3 import (
+        Qwen3DenseCausalLM,
+        Qwen3DenseConfig,
+        Qwen3MoeCausalLM,
+        Qwen3MoeConfig,
+    )
+    from d9d_tpu_torch.optim import StochasticAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    shapes = [((4096, 1024), torch.bfloat16), ((1000003,), torch.bfloat16),
+              ((128,), torch.float32)]
+    p0 = [torch.randn(s, generator=gen).to(dt) for s, dt in shapes]
+    mu = [0.01 * torch.randn(s, generator=gen) for s, _ in shapes]
+    nu = [1e-4 * torch.rand(s, generator=gen) for s, _ in shapes]
+    grads = [0.01 * torch.randn(s, generator=gen) for s, _ in shapes]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = [torch.nn.Parameter(p.to(dev)) for p in p0]
+        opt = StochasticAdamW(params, 1e-3, weight_decay=0.1, seed=5)
+        opt.load_state_dict({"count": 3, "seed": 5,
+                             "mu": [m.to(dev) for m in mu],
+                             "nu": [v.to(dev) for v in nu]})
+        reset_counters()
+        opt.step([g.to(dev) for g in grads])
+        torch.cuda.synchronize()
+        out[dev] = (params, opt, read_counters())
+    (cp, copt, ccount), (hp, hopt, _) = out["cuda"], out["cpu"]
+    if ccount != counts(stochastic_round=2):
+        raise AssertionError(f"optimizer step: counters {ccount}")
+    moment_use = 0.0
+    for a, b in zip(copt.mu + copt.nu, hopt.mu + hopt.nu):
+        a, b = a.cpu().double(), b.double()
+        allowed = OPT_MOMENT_RTOL * (b.abs() + b.abs().max())
+        moment_use = max(moment_use, float(((a - b).abs() / allowed).max()))
+    ulps = [float(bf16_ulps(a.detach().cpu().float(), b.detach().float())
+                  .max()) for a, b in zip(cp, hp)]
+    bitwise = [bool(torch.equal(a.detach().cpu(), b.detach()))
+               for a, b in zip(cp, hp)]
+    if moment_use > 1.0 or max(ulps) > OPT_PARAM_ULPS:
+        raise AssertionError(
+            f"optimizer step card vs CPU: moments use {moment_use} of rtol "
+            f"{OPT_MOMENT_RTOL}, parameters {ulps} bf16 ulps")
+    say(phase="small_e2e_optimizer", optimizer="StochasticAdamW",
+        shapes=[[list(s), str(dt).split(".")[-1]] for s, dt in shapes],
+        moment_tolerance_use=moment_use, param_max_bf16_ulps=ulps,
+        param_bitwise_equal=bitwise, counters=ccount)
+
+    Provider, schedule = _train_parts()
+    dense = Qwen3DenseConfig(
+        vocab_ranges=(("default", 1024),), hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, intermediate_size=512)
+    moe = Qwen3MoeConfig(
+        vocab_ranges=(("default", 1024),), hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, moe_intermediate_size=128,
+        num_experts=8, num_experts_per_tok=2)
+    data = _Batches(1024, 3, 4, 128, seed=21, loss_mask=True)
+    keys = ("loss", "grad_norm")
+    for kind, cfg in (("dense", dense), ("moe", moe)):
+        cls = Qwen3DenseCausalLM if kind == "dense" else Qwen3MoeCausalLM
+        state = cls(cfg, dtype=torch.float32, param_dtype=torch.bfloat16,
+                    device="cpu", seed=7).state_dict()
+
+        def run(device):
+            provider = (
+                Provider(cfg, torch.float32, False, state=state,
+                         param_dtype=torch.bfloat16) if kind == "dense" else
+                _moe_provider(cfg, torch.float32, "aligned", state=state,
+                              param_dtype=torch.bfloat16))
+            trainer = Trainer(
+                ctx=MeshParameters().build([device]),
+                config=TrainerConfig(global_batch_size=4, microbatch_size=2,
+                                     seq_len=128, total_steps=3, log_every=1,
+                                     max_grad_norm=1.0),
+                model_provider=provider, dataset_provider=data,
+                task=CausalLMTask(),
+                optimizer_provider=_stochastic_adamw_provider(
+                    weight_decay=0.1),
+                learning_rate=schedule(1e-3, 3))
+            reset_counters(trainer.module)
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            return hist, read_counters(trainer.module), _n_bf16(trainer.module)
+
+        card, on_card, n_bf16 = run("cuda")
+        host, _, _ = run("cpu")
+        # 2 layers x 2 microbatches x 3 steps; one rounding per bf16
+        # parameter per step
+        extra = ({} if kind == "dense" else
+                 {"moe_readbacks": 12, "moe_ffn_aligned": 24})
+        want = counts(flash_fwd=24, flash_bwd_dq=12, flash_bwd_dkv=12,
+                      stochastic_round=3 * n_bf16, **extra)
+        if on_card != want:
+            raise AssertionError(
+                f"small bf16 train {kind}: counters {on_card}, expected "
+                f"{want}")
+        rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                      for a, b in zip(card, host)) for k in keys}
+        if max(rel.values()) > BF16_TRAIN_TOL:
+            raise AssertionError(
+                f"small bf16 train {kind}: card vs CPU {rel} (tolerance "
+                f"{BF16_TRAIN_TOL})")
+        say(phase="small_e2e_train_bf16", model=kind, steps=3,
+            param_dtype="bfloat16", dtype="float32",
+            optimizer="StochasticAdamW wd 0.1", bf16_parameters=n_bf16,
+            card=[{k: h[k] for k in ("step",) + keys} for h in card],
+            cpu=[{k: h[k] for k in ("step",) + keys} for h in host],
+            max_rel_diff_card_vs_cpu=rel, tolerance=BF16_TRAIN_TOL,
+            counters=on_card)
+
+
+def phase_full_width_train_bf16():
+    """Qwen3-8B widths at 8 of 36 layers with bf16 parameters (q/k norms
+    bf16, layer norms fp32, as in JAX) under StochasticAdamW: 6 steps, a
+    profiled step, then 2 steps of a fresh trainer with bf16 moments; then
+    Qwen3-30B-A3B widths at 4 of 48 layers, 2 steps (B5 on bf16 expert
+    stacks)."""
+    import dataclasses
+    import gc
+    import math
+    import statistics
+
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.loop import CausalLMTask, Trainer, TrainerConfig
+    from d9d_tpu_torch.models.qwen3 import Qwen3DenseConfig, Qwen3MoeConfig
+
+    Provider, schedule = _train_parts()
+    gbs, mbs, seq, steps = 4, 2, 2048, 6
+
+    def trainer_for(cfg, provider, total, **opt):
+        return Trainer(
+            ctx=MeshParameters().build(),
+            config=TrainerConfig(global_batch_size=gbs, microbatch_size=mbs,
+                                 seq_len=seq, total_steps=total, log_every=1,
+                                 max_grad_norm=1.0),
+            model_provider=provider, dataset_provider=data,
+            task=CausalLMTask(),
+            optimizer_provider=_stochastic_adamw_provider(**opt),
+            learning_rate=schedule(3e-4, total))
+
+    def run(trainer, tag, n_steps, roundings, **launches):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(trainer.module)
+        hist = trainer.train()
+        torch.cuda.synchronize()
+        got = read_counters(trainer.module)
+        want = counts(stochastic_round=roundings * n_steps, **{
+            k: v * n_steps for k, v in launches.items()})
+        if got != want:
+            raise AssertionError(f"{tag}: counters {got}, expected {want}")
+        vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+        if len(hist) != n_steps or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"{tag}: bad history {hist}")
+        walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                       for a, b in zip(hist, hist[1:])]
+        return hist, got, walls
+
+    def rows(hist):
+        return [{"step": h["step"], "loss": h["loss"],
+                 "grad_norm": h["grad_norm"]} for h in hist]
+
+    layers = 8  # of 36, as the fp32 phase
+    cfg = dataclasses.replace(Qwen3DenseConfig.qwen3_8b(), num_layers=layers)
+    data = _Batches(cfg.vocab_size, steps + 2, gbs, seq, seed=5)
+    per_call = layers * (gbs // mbs)
+    dense_launches = dict(flash_fwd=2 * per_call, flash_bwd_dq=per_call,
+                          flash_bwd_dkv=per_call)
+
+    def dense_provider():
+        return Provider(cfg, torch.bfloat16, False, seed=0,
+                        param_dtype=torch.bfloat16)
+
+    t0 = time.perf_counter()
+    trainer = trainer_for(cfg, dense_provider(), steps)
+    torch.cuda.synchronize()
+    n_bf16 = _n_bf16(trainer.module)
+    say(phase="full_width_train_bf16", model="qwen3_8b", layers=layers,
+        layers_reduced_from=36,
+        params=sum(p.numel() for p in trainer.module.parameters()),
+        bf16_parameter_tensors=n_bf16, state_bytes=_state_bytes(trainer),
+        init_seconds=time.perf_counter() - t0,
+        setup={"param_dtype": "bfloat16 (layer norms float32)",
+               "dtype": "bfloat16", "remat": cfg.remat_policy,
+               "global_batch_size": gbs, "microbatch_size": mbs,
+               "seq_len": seq, "optimizer": "StochasticAdamW defaults",
+               "warmup_steps": 2})
+    hist, got, walls = run(trainer, "train bf16", steps, n_bf16,
+                           **dense_launches)
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"train bf16: loss did not fall: {rows(hist)}")
+    ms_step = 1e3 * statistics.median(walls[1:])
+    launches = dict(got)
+    say(phase="full_width_train_bf16", entry="Trainer.train",
+        moment_dtype="float32", steps=rows(hist), ms_per_step=ms_step,
+        ms_per_step_all=[1e3 * w for w in walls],
+        tokens_per_s=gbs * seq / (ms_step / 1e3),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), counters=got,
+        per_step={"stochastic_round_launches": got["stochastic_round"] / steps,
+                  "plain_calls": got["plain_calls"]})
+    say(phase="profile", **profile_train_step(trainer, data.batches[steps]))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = trainer_for(cfg, dense_provider(), 2, moment_dtype="bfloat16")
+    state = _state_bytes(trainer)
+    # bf16 moments for every leaf (the fp32 norms' too, as in JAX): two more
+    # roundings per parameter tensor
+    n_tensors = sum(1 for _ in trainer.module.parameters())
+    bhist, got, bwalls = run(trainer, "train bf16 moments", 2,
+                             n_bf16 + 2 * n_tensors, **dense_launches)
+    step1 = {k: abs(bhist[0][k] - hist[0][k]) / abs(hist[0][k])
+             for k in ("loss", "grad_norm")}
+    if max(step1.values()) > 1e-5:  # same weights, nothing rounded yet
+        raise AssertionError(f"train bf16 moments: step 1 {step1}")
+    say(phase="full_width_train_bf16", entry="Trainer.train",
+        moment_dtype="bfloat16", steps=rows(bhist), state_bytes=state,
+        step1_vs_fp32_moments=step1,
+        ms_per_step_all=[1e3 * w for w in bwalls],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), counters=got,
+        per_step={"stochastic_round_launches": got["stochastic_round"] / 2})
+    for name, n in got.items():
+        launches[name] += n
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    layers = 4  # of 48, as the fp32 MoE phase
+    mcfg = dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(),
+                               num_layers=layers)
+    per_call = layers * (gbs // mbs)
+    t0 = time.perf_counter()
+    trainer = trainer_for(mcfg, _moe_provider(
+        mcfg, torch.bfloat16, "aligned", seed=0,
+        param_dtype=torch.bfloat16), 2)
+    torch.cuda.synchronize()
+    m_bf16 = _n_bf16(trainer.module)
+    state = _state_bytes(trainer)
+    init_s = time.perf_counter() - t0
+    mhist, got, mwalls = run(
+        trainer, "train_moe bf16", 2, m_bf16, flash_fwd=2 * per_call,
+        flash_bwd_dq=per_call, flash_bwd_dkv=per_call,
+        moe_ffn_aligned=2 * per_call, moe_readbacks=per_call)
+    say(phase="full_width_train_bf16", model="qwen3_30b_a3b", layers=layers,
+        layers_reduced_from=48, entry="Trainer.train", moe_ffn="aligned",
+        bf16_parameter_tensors=m_bf16, state_bytes=state,
+        init_seconds=init_s, steps=rows(mhist),
+        ms_per_step_all=[1e3 * w for w in mwalls],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), counters=got)
+    for name, n in got.items():
+        launches[name] += n
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import gc
 
@@ -2093,13 +2585,15 @@ def main():
     phase_small_e2e()
     phase_small_e2e_train()
     phase_small_e2e_train_moe()
+    phase_small_e2e_train_bf16()
     launches, model = phase_full_width()
     for name, n in phase_full_width_paged(model).items():
         launches[name] += n
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    for phase in (phase_full_width_train, phase_full_width_train_moe):
+    for phase in (phase_full_width_train, phase_full_width_train_moe,
+                  phase_full_width_train_bf16):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()

@@ -3,18 +3,21 @@
 
 ``AdamWConfig`` builds :class:`d9d_tpu_torch.optim.AdamW` (optax ``adamw``
 semantics, no weight-decay mask, as ``loop/auto.py:48``).
-``StochasticAdamWConfig`` is accepted but not built: its bf16 stochastic
-rounding is a TPU kernel (``ops/stochastic.py``) that is not ported yet.
+``StochasticAdamWConfig`` builds :class:`d9d_tpu_torch.optim.StochasticAdamW`
+(bf16 parameters written back by stochastic rounding).
 """
 
 import dataclasses
 from typing import Union
+
+import torch
 
 from d9d_tpu_torch.lr_scheduler.config import (
     PiecewiseSchedulerConfig,
     piecewise_scheduler_from_config,
 )
 from d9d_tpu_torch.optim.adamw import AdamW
+from d9d_tpu_torch.optim.stochastic_adamw import StochasticAdamW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +49,15 @@ def build_optimizer(config: OptimizerConfig, params, learning_rate):
         return AdamW(params, learning_rate, b1=config.b1, b2=config.b2,
                      eps=config.eps, weight_decay=config.weight_decay)
     if isinstance(config, StochasticAdamWConfig):
-        raise NotImplementedError(
-            "StochasticAdamW is not ported yet: it needs the bf16 "
-            "stochastic-rounding kernel (ops/stochastic.py)")
+        moment_dtype = {"float32": torch.float32,
+                        "bfloat16": torch.bfloat16}.get(config.moment_dtype)
+        if moment_dtype is None:
+            raise ValueError(f"moment_dtype must be 'float32' or 'bfloat16', "
+                             f"got {config.moment_dtype!r}")
+        return StochasticAdamW(
+            params, learning_rate, b1=config.b1, b2=config.b2, eps=config.eps,
+            weight_decay=config.weight_decay, moment_dtype=moment_dtype,
+            seed=config.seed)
     raise TypeError(f"unknown optimizer config: {config!r}")
 
 

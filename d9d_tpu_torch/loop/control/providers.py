@@ -32,8 +32,12 @@ class DatasetProvider(abc.ABC):
 class OptimizerProvider(abc.ABC):
     @abc.abstractmethod
     def build(self, params, learning_rate: "float | Callable[[int], float]"):
-        """An optimizer over ``params`` with the ``step()`` / ``count``
-        surface of :class:`d9d_tpu_torch.optim.AdamW`."""
+        """An optimizer over ``params`` with a ``count`` and a step: either
+        ``step()`` reading each parameter's ``.grad``, cast to the
+        parameter's dtype (:class:`d9d_tpu_torch.optim.AdamW`), or, when it
+        declares ``accepts_fp32_grads``, ``step(grads)`` taking the fp32
+        gradients in the order of ``params`` and owning the parameter
+        write (:class:`d9d_tpu_torch.optim.StochasticAdamW`)."""
 
 
 class AdamWProvider(OptimizerProvider):

@@ -4,15 +4,22 @@ global-norm clipping, optimizer update (counterpart of
 
 The contract is the JAX step's:
 
-- gradients of each microbatch's ``loss_sum`` accumulate in fp32, in the
-  parameters' ``.grad`` (parameters are held in fp32; another dtype
-  raises);
+- gradients of each microbatch's ``loss_sum`` accumulate in ``grad_dtype``
+  (fp32): in the parameters' ``.grad`` for parameters held in it, and for
+  narrower ones (bf16) in fp32 accumulators the step holds — autograd
+  gives such a parameter a gradient of its own dtype per microbatch, as
+  JAX's cotangent has the primal's dtype, and each is added into its
+  accumulator and freed (parameters held wider than ``grad_dtype`` raise);
 - sum-then-scale: the summed gradients are multiplied by
   ``1 / max(Σ weight, 1e-8)`` — not a mean of microbatch means;
 - the clip factor is ``min(1, max_norm / max(norm, 1e-12))`` over the
   global L2 norm of all gradients (NOT ``torch.nn.utils.clip_grad_norm_``,
   which divides by ``norm + 1e-6``);
-- the update; the metrics ``loss``, ``grad_norm``, ``loss_weight`` and
+- the update: an optimizer that declares ``accepts_fp32_grads`` gets the
+  gradients in ``grad_dtype`` through ``step(grads)`` and owns the
+  parameter write; any other gets them cast to each parameter's dtype in
+  ``.grad`` and is called as ``step()``;
+- the metrics ``loss``, ``grad_norm``, ``loss_weight`` and
   ``task/<k>`` (task statistics summed over microbatches), as device
   scalars — nothing is read back here.
 
@@ -57,14 +64,15 @@ def build_train_step(
         raise NotImplementedError(
             f"build_train_step: {', '.join(on)} not ported yet")
     params = [p for p in module.parameters() if p.requires_grad]
-    odd = {p.dtype for p in params} - {grad_dtype or p.dtype for p in params}
-    if odd:
-        # autograd accumulates in the parameter's dtype; a separate fp32
-        # accumulator for narrower parameters is not ported
+    # parameters held narrower than grad_dtype accumulate outside .grad
+    narrow = [grad_dtype is not None and p.dtype != grad_dtype for p in params]
+    wide = {str(p.dtype) for p, n in zip(params, narrow)
+            if n and p.dtype.itemsize >= grad_dtype.itemsize}
+    if wide:
         raise NotImplementedError(
-            f"parameters held in {sorted(map(str, odd))} with grad_dtype "
-            f"{grad_dtype}: hold them in the accumulation dtype (float32, "
-            f"the JAX package's param_dtype)")
+            f"parameters held in {sorted(wide)} with grad_dtype {grad_dtype}: "
+            f"only parameters narrower than grad_dtype are accumulated apart")
+    fp32_grads = getattr(optimizer, "accepts_fp32_grads", False)
 
     def step(microbatches: list[dict]) -> dict[str, torch.Tensor]:
         if len(microbatches) != num_microbatches:
@@ -72,12 +80,21 @@ def build_train_step(
                              f"{len(microbatches)}")
         for p in params:
             p.grad = None
+        accs: list[torch.Tensor | None] = [None] * len(params)
         loss_sum = weight_sum = None
         metrics_sum: dict[str, torch.Tensor] = {}
         for mb in microbatches:
             # each backward adds this microbatch's gradients into .grad
             loss, weight, metrics = task.loss_fn(module, mb)
             loss.backward()
+            with torch.no_grad():
+                for i, p in enumerate(params):
+                    if narrow[i] and p.grad is not None:
+                        if accs[i] is None:
+                            accs[i] = p.grad.to(grad_dtype)
+                        else:
+                            accs[i].add_(p.grad)
+                        p.grad = None
             loss, weight = loss.detach().float(), weight.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             weight_sum = weight if weight_sum is None else weight_sum + weight
@@ -86,10 +103,13 @@ def build_train_step(
                 metrics_sum[k] = v if k not in metrics_sum else metrics_sum[k] + v
 
         with torch.no_grad():
-            for p in params:
-                if p.grad is None:  # unused by the loss: a zero gradient
-                    p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
+            grads = []
+            for i, p in enumerate(params):
+                g = accs[i] if narrow[i] else p.grad
+                if g is None:  # unused by the loss: a zero gradient
+                    g = torch.zeros_like(p, dtype=grad_dtype or p.dtype)
+                grads.append(g)
+            del accs
             # sum-then-scale by the global weight
             inv_w = 1.0 / torch.clamp(weight_sum, min=1e-8)
             torch._foreach_mul_(grads, inv_w)
@@ -99,7 +119,14 @@ def build_train_step(
                 clip = torch.clamp(
                     max_grad_norm / torch.clamp(grad_norm, min=1e-12), max=1.0)
                 torch._foreach_mul_(grads, clip)
-        optimizer.step()
+            if not fp32_grads:
+                for i, p in enumerate(params):
+                    p.grad = grads[i].to(p.dtype)
+        if fp32_grads:
+            optimizer.step(grads)
+        else:
+            optimizer.step()
+        del grads
         out = {"loss": loss, "grad_norm": grad_norm, "loss_weight": weight_sum}
         out.update({f"task/{k}": v for k, v in metrics_sum.items()})
         return out

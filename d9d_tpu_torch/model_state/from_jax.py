@@ -44,36 +44,39 @@ from d9d_tpu_torch.nn.vocab_ranges import (
 
 
 def _to_tensor(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.array(value)).to(
-        device=like.device, dtype=like.dtype
-    )
+    arr = np.array(value)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX's comes from ml_dtypes): carry
+        # the 16-bit patterns across as they are
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
-def load_jax_params(model, flat: dict) -> None:
-    """Fill ``model``'s parameters in place from a flattened flax tree."""
-    remaining = dict(flat)
-    if remaining and all(k.startswith("params/") for k in remaining):
-        remaining = {k[len("params/"):]: v for k, v in remaining.items()}
-    loaded: set[str] = set()
+def _strip_trainer_prefix(flat: dict) -> dict:
+    if flat and all(k.startswith("params/") for k in flat):
+        return {k[len("params/"):]: v for k, v in flat.items()}
+    return dict(flat)
+
+
+def jax_param_map(model, keys) -> dict[str, list[str]]:
+    """The name mapping of :func:`load_jax_params`: each parameter of
+    ``model`` → the keys of the flattened flax tree that fill it (the range
+    tables of a vocabulary table in range order, else one key). ``keys``
+    may carry the ``params/`` prefix. Raises on a key with no parameter and
+    on a parameter with no key."""
+    remaining = set(_strip_trainer_prefix(dict.fromkeys(keys)))
     params = dict(model.named_parameters())
+    out: dict[str, list[str]] = {}
 
-    def assign(name: str, value: torch.Tensor) -> None:
-        target = params[name]
-        if tuple(value.shape) != tuple(target.shape):
-            raise ValueError(
-                f"shape mismatch for {name}: source {tuple(value.shape)}, "
-                f"parameter {tuple(target.shape)}"
-            )
-        with torch.no_grad():
-            target.copy_(value)
-        loaded.add(name)
-
-    def take(key: str):
+    def take(key: str) -> str:
         if key not in remaining:
             raise KeyError(f"missing key in the flax tree: {key}")
-        return remaining.pop(key)
+        remaining.discard(key)
+        return key
 
-    # vocabulary tables: concat the named ranges once, in range order
+    # vocabulary tables: the named ranges, in range order
     for mod_name, mod in model.named_modules():
         if isinstance(mod, TokenEmbedding):
             prefix = "embedding"
@@ -87,36 +90,46 @@ def load_jax_params(model, flat: dict) -> None:
             for prev, p in zip([""] + mod_name.split("."), mod_name.split("."))
             if p != "layers"
         )
-        tables = [
-            _to_tensor(take(f"{scope}/{leaf}" if scope else leaf), params[name])
-            for leaf in vocab_range_names(prefix, mod.vocab_ranges)
-        ]
-        assign(name, concat_vocab_ranges(tables))
+        out[name] = [take(f"{scope}/{leaf}" if scope else leaf)
+                     for leaf in vocab_range_names(prefix, mod.vocab_ranges)]
 
-    for key in list(remaining):
+    for key in sorted(remaining):
         parts = key.split("/")
-        leaf = parts[-1]
         mods = [
             f"layers.{p[len('layers_'):]}" if p.startswith("layers_") else p
             for p in parts[:-1]
         ]
-        if leaf == "kernel":
-            name = ".".join(mods + ["weight"])
-            if name not in params:
-                continue  # reported below as left over
-            value = _to_tensor(remaining.pop(key), params[name]).T
-        else:
-            name = ".".join(mods + [leaf])
-            if name not in params:
-                continue
-            value = _to_tensor(remaining.pop(key), params[name])
-        assign(name, value)
+        leaf = "weight" if parts[-1] == "kernel" else parts[-1]
+        name = ".".join(mods + [leaf])
+        if name in params and name not in out:
+            out[name] = [take(key)]
 
     if remaining:
         raise KeyError(
             f"keys of the flax tree with no parameter in the model: "
             f"{sorted(remaining)}"
         )
-    missing = sorted(set(params) - loaded)
+    missing = sorted(set(params) - set(out))
     if missing:
         raise KeyError(f"model parameters that got no value: {missing}")
+    return out
+
+
+def load_jax_params(model, flat: dict) -> None:
+    """Fill ``model``'s parameters in place from a flattened flax tree."""
+    flat = _strip_trainer_prefix(flat)
+    params = dict(model.named_parameters())
+    for name, keys in jax_param_map(model, flat).items():
+        target = params[name]
+        if keys[0].endswith("/kernel") or keys[0] == "kernel":
+            value = _to_tensor(flat[keys[0]], target).T
+        else:
+            value = concat_vocab_ranges(
+                [_to_tensor(flat[k], target) for k in keys])
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"shape mismatch for {name}: source {tuple(value.shape)}, "
+                f"parameter {tuple(target.shape)}"
+            )
+        with torch.no_grad():
+            target.copy_(value)

@@ -478,8 +478,10 @@ class GroupedQueryAttention(nn.Module):
         self.k_proj = Projection(hidden_size, hkv * d, **kw)
         self.v_proj = Projection(hidden_size, hkv * d, **kw)
         if qk_norm:
+            # in param_dtype, as the reference's q_norm/k_norm; the layer
+            # norms around the block stay fp32 (nn/decoder.py)
             nkw = dict(eps=qk_norm_eps, zero_centered=qk_norm_zero_centered,
-                       device=dev)
+                       param_dtype=param_dtype or torch.float32, device=dev)
             self.q_norm = RMSNorm(d, **nkw)
             self.k_norm = RMSNorm(d, **nkw)
         self.sinks = None

@@ -28,6 +28,7 @@ from d9d_tpu_torch.ops.rope import (
     compute_rope_frequencies,
     make_rope_cos_sin,
 )
+from d9d_tpu_torch.ops.stochastic import fold_seed, stochastic_round_to_bf16
 from d9d_tpu_torch.ops.swiglu import silu_mul, swiglu
 
 __all__ = [
@@ -56,6 +57,8 @@ __all__ = [
     "apply_rope",
     "compute_rope_frequencies",
     "make_rope_cos_sin",
+    "fold_seed",
+    "stochastic_round_to_bf16",
     "silu_mul",
     "swiglu",
 ]

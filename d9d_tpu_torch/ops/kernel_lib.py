@@ -98,6 +98,15 @@ _SIGNATURES = {
     ],
 }
 
+# launchers of elementwise kernels (no attention or expert-FFN strides)
+_ELEMENTWISE = {
+    "d9d_stochastic_round": [
+        _P, _P,                      # x (fp32), out (bf16)
+        _L, ctypes.c_ulonglong,      # numel, 64-bit seed
+        _P,                          # stream
+    ],
+}
+
 # host-side queries: no launch, same int status as the launchers
 _QUERIES = {
     "d9d_flash_decode_tiling": [
@@ -193,7 +202,8 @@ def load() -> ctypes.CDLL:
         if not out.exists():
             _build(out)
         lib = ctypes.CDLL(str(out))
-        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
+        for name, argtypes in {**_SIGNATURES, **_ELEMENTWISE,
+                               **_QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

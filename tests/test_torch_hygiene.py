@@ -86,10 +86,13 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/models/qwen3/moe.py",
         "d9d_tpu_torch/loop/kv_paging.py",
         "d9d_tpu_torch/nn/decode_flags.py",
+        "d9d_tpu_torch/ops/stochastic.py",
+        "d9d_tpu_torch/optim/stochastic_adamw.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {
-        "flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "moe_ffn.cu"}
+        "flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "moe_ffn.cu",
+        "stochastic.cu"}
 
 
 @pytest.mark.parametrize(
