@@ -8,7 +8,7 @@ Run from the repository root with no arguments::
 It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
 
 1. device — fail at once without a CUDA device; print the card's name and
-   power limit as ``nvidia-smi`` gives them;
+   power limit as ``nvidia-smi`` gives them, and its compute mode;
 2. build — compile the port's CUDA kernels from ``d9d_tpu_torch/csrc``;
 3. kernels — hold each kernel against its plain PyTorch version on the card
    (bf16 and fp32, at the main paths' shapes), time kernel, plain version
@@ -23,7 +23,13 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
    and 151936 x 4096 elements (±0, denormals, ±inf, NaNs, the largest
    finite values), with its rule checked at 2^24 draws per fraction and a
-   round-to-nearest negative control;
+   round-to-nearest negative control; the flash kernels at global offsets
+   (B4, the ring-attention block) at Qwen3-8B heads on 4096-token chunks —
+   diagonal, past, future, a straddling window, segments, non-causal with a
+   negative shift; forward and the three backward kernels with cotangents
+   from a downstream combine — then 4 chunks composed into causal attention
+   over 16384 tokens against the whole-sequence kernels, with an
+   offsets-zeroed negative control, and the main path's 8192-token block;
 4. small end-to-end agreement — serving: a narrow fp32 model on the card
    (through the kernels) against the same weights on the CPU (through the
    plain versions): greedy tokens identical, logits within tolerance; the
@@ -55,7 +61,15 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    parameters (layer norms fp32) under ``StochasticAdamW``: 6 steps, a
    profiled step, 2 steps of a fresh trainer with bf16 moments; then
    Qwen3-30B-A3B widths at 4 layers, 2 steps. Every rounding of a
-   parameter or bf16 moment goes through the stochastic-rounding kernel.
+   parameter or bf16 moment goes through the stochastic-rounding kernel;
+9. context parallelism — two child processes of this script
+   (``--cp-worker``) share the card over gloo at ``cp_shard = 2``: one fp32
+   step of Qwen3-8B widths at 1 layer through the ring against the same
+   step in this process through the flash backend, then 3
+   ``Trainer.train`` steps at 2 of 36 layers on 16384-token sequences
+   (bf16 compute, fp32 parameters, full remat, AdamW); every attention goes
+   through the ring and B4. Two ranks time-share one card: the phase shows
+   correctness and times, not context-parallel scaling.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -149,8 +163,18 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     say(phase="device", python=sys.version.split()[0],
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda,
+        compute_mode=compute_mode())
     return smi
+
+
+def compute_mode():
+    """The card's compute mode as nvidia-smi gives it: in an exclusive mode
+    two processes cannot share the card (phase 9 needs them to)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -833,6 +857,376 @@ def check_flash_bwd(gen):
     }
 
 
+# ---------------------------------------------------------------------------
+# B4: the flash kernels at global offsets (the ring-attention block)
+#
+# Held to the same rules as B1 (forward) and B2/B3 (backward), by dtype, on
+# the query rows that see at least one key of the block. Rows that see none
+# (the whole block in the causal future, a window that ends before the
+# block, a segment absent from the key chunk) must come out as o = 0 and
+# lse <= -1e29 on both sides. The backward takes its cotangents from a
+# downstream combine_attention_chunks with a finite partner chunk and a
+# nonzero cotangent on the merged lse, as ring attention gives them: a row
+# without a key then has a zero cotangent, and its gradients are zero on
+# both sides whatever key tiles the kernels visit (ROADMAP C3).
+BLOCK_T = 4096         # chunk length of the kernel checks
+MAIN_T_LOC = 8192      # phase 9's chunk length (16384 tokens over 2 ranks)
+BLOCK_COMPOSE_T = 16384
+BLOCK_MISS_MIN_USE = 10.0  # the offsets-zeroed control must miss by this
+
+
+def _block_cotangents(o, lse, gen):
+    """(do in o's dtype, dlse) of a downstream combine with a partner chunk
+    whose lse is of the block's size, and random cotangents on the merged
+    output and lse."""
+    from d9d_tpu_torch.ops.attention.flash import combine_attention_chunks
+
+    po = torch.randn(o.shape, device="cuda", generator=gen)
+    plse = 8.0 + torch.randn(lse.shape, device="cuda", generator=gen)
+    g_out = torch.randn(o.shape, device="cuda", generator=gen)
+    g_lse = torch.randn(lse.shape, device="cuda", generator=gen)
+    with torch.enable_grad():
+        o_ = o.detach().float().requires_grad_()
+        l_ = lse.detach().clone().requires_grad_()
+        out, merged = combine_attention_chunks(po, plse, o_, l_)
+        loss = (out * g_out).sum() + (merged * g_lse).sum()
+        do, dlse = torch.autograd.grad(loss, (o_, l_))
+    return do.to(o.dtype).contiguous(), dlse
+
+
+def _block_plain_fwd(q, k, v, **kw):
+    """The plain forward one kv head at a time (same function; the
+    [T, T] fp32 logits of all heads at once would not fit beside the
+    rest)."""
+    from d9d_tpu_torch.ops.attention.flash import flash_attention_plain
+
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    parts = [flash_attention_plain(q[:, :, h * g:(h + 1) * g],
+                                   k[:, :, h:h + 1], v[:, :, h:h + 1], **kw)
+             for h in range(hkv)]
+    return (torch.cat([p[0] for p in parts], dim=2),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
+def _block_plain_bwd(q, k, v, do, lse, delta, **kw):
+    """The plain backward one kv head at a time (same function), for the
+    same reason as _block_plain_fwd."""
+    from d9d_tpu_torch.ops.attention.flash import flash_attention_bwd_plain
+
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    parts = [flash_attention_bwd_plain(
+        q[:, :, h * g:(h + 1) * g], k[:, :, h:h + 1], v[:, :, h:h + 1],
+        do[:, :, h * g:(h + 1) * g], lse[:, h * g:(h + 1) * g],
+        delta[:, h * g:(h + 1) * g], **kw) for h in range(hkv)]
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def _block_work(t, hq, d, kw, segs=None):
+    """Visible (query, key) pairs of the block and the least times: forward
+    2 products, dq 3, dk/dv 4 (2*D flops each per pair) at the bf16 peak."""
+    from d9d_tpu_torch.ops.attention.flash import _mask
+
+    mask = _mask(t, t, "cuda", kw.get("causal", True), kw.get("window_size"),
+                 *(segs or (None, None)), kw["q_offset"], kw["k_offset"])
+    pairs = float(mask.sum()) * hq
+    ms = {name: 1e3 * products * 2.0 * d * pairs / H100_BF16_FLOPS
+          for name, products in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+    return pairs, ms
+
+
+def _efficient_attention(q, k, v, causal):
+    """The library yardstick of a block: one call that returns o and its
+    lse, kv heads repeated for the group, [B, H, T, D] layout."""
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qh, kh, vh, None, True, 0.0, causal, scale=q.shape[-1] ** -0.5)
+
+
+# the blocks one library call computes: no offsets, so only a causal block on
+# the diagonal and a block every query sees whole
+BLOCK_LIBRARY_CASES = {"diagonal": True, "past": False,
+                       "non_causal_negative_shift": False}
+
+
+def check_flash_block(gen):
+    from d9d_tpu_torch.ops.attention import flash as F
+
+    hq, hkv, d, t = 32, 8, 128, BLOCK_T
+    # global packed-sequence ids over two chunks: segments [0, 3000),
+    # [3000, 6000), [6000, 8192); the query chunk is the second one, so its
+    # rows of the last segment see no key of the first chunk
+    pos = torch.arange(2 * t, device="cuda")
+    ids = ((pos >= 3000).int() + (pos >= 6000).int())[None]
+    seg = (ids[:, t:].contiguous(), ids[:, :t].contiguous())
+    specs = [
+        ("diagonal", dict(q_offset=0, k_offset=0), None),
+        ("past", dict(q_offset=t, k_offset=0), None),
+        ("future", dict(q_offset=0, k_offset=t), None),
+        ("window1536_straddling",
+         dict(q_offset=t, k_offset=0, window_size=1536), None),
+        ("segments", dict(q_offset=t, k_offset=0), seg),
+        ("non_causal_negative_shift",
+         dict(q_offset=0, k_offset=t, causal=False), None),
+    ]
+    cases, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_use = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, kw, segs in specs:
+            q = _rand((1, t, hq, d), dtype, gen)
+            k = _rand((1, t, hkv, d), dtype, gen)
+            v = _rand((1, t, hkv, d), dtype, gen)
+            skw = dict(kw)
+            if segs is not None:
+                skw.update(q_segments=segs[0], kv_segments=segs[1])
+            o, lse = F.flash_attention(q, k, v, **skw)
+            torch.cuda.synchronize()
+            op, lsep = F.flash_attention_plain(q, k, v, **skw)
+            vis = F._mask(t, t, "cuda", kw.get("causal", True),
+                          kw.get("window_size"), *(segs or (None, None)),
+                          kw["q_offset"], kw["k_offset"])
+            rows = vis.expand(1, 1, 1, t, t).any(-1)[:, 0, 0]  # [B, T]
+            dead = int((~rows).sum())
+            row = {"case": tag, "dtype": str(dtype).split(".")[-1],
+                   "shape": [1, t, hq, hkv, d],
+                   "offsets": [kw["q_offset"], kw["k_offset"]],
+                   "rows_without_a_key": dead}
+            if rows.any():
+                use = tolerance_use(o[rows], op[rows], dtype)
+                lerr = max_err(lse.transpose(1, 2)[rows],
+                               lsep.transpose(1, 2)[rows])
+                err = max_err(o[rows], op[rows])
+            else:
+                use = lerr = err = 0.0
+            dead_ok = bool((o[~rows] == 0).all()) and bool(
+                (lse.transpose(1, 2)[~rows] <= -1e29).all()) and bool(
+                (lsep.transpose(1, 2)[~rows] <= -1e29).all())
+            if not (torch.isfinite(o.float()).all() and use <= 1.0
+                    and lerr <= LSE_TOL and dead_ok):
+                raise AssertionError(
+                    f"flash_block fwd {tag} {dtype}: uses {use} of its "
+                    f"tolerance, lse err {lerr}, rows without a key zero "
+                    f"with lse at the sentinel: {dead_ok}")
+            do, dlse = _block_cotangents(o, lse, gen)
+            delta = F.block_delta(do, o, dlse)
+            want = F.flash_attention_bwd_plain(q, k, v, do, lse, delta, **skw)
+            split = F.flash_attention_bwd(q, k, v, do, lse, delta, **skw)
+            fused = F.flash_attention_bwd(q, k, v, do, lse, delta,
+                                          fused=True, **skw)
+            torch.cuda.synchronize()
+            uses = {}
+            for name, got in (("split", split), ("fused", fused)):
+                for i, label in enumerate(("dq", "dk", "dv")):
+                    if not torch.isfinite(got[i].float()).all():
+                        raise AssertionError(
+                            f"flash_block {tag} {dtype} {name} {label} "
+                            f"not finite")
+                    uses[f"{name}_{label}"] = bwd_tolerance_use(
+                        got[i], want[i], dtype)
+                    worst[dtype] = max(worst[dtype], max_err(got[i], want[i]))
+            if max(uses.values()) > 1.0:
+                raise AssertionError(
+                    f"flash_block bwd {tag} {dtype}: tolerance use {uses}")
+            if tag == "future" and not all(
+                    bool((x == 0).all()) for x in (*split, *fused)):
+                raise AssertionError("flash_block future: nonzero gradients")
+            worst[dtype] = max(worst[dtype], err)
+            worst_use = max(worst_use, use, *uses.values())
+            row.update(max_abs_err=err, tolerance_use=use, lse_err=lerr,
+                       bwd_tolerance_use=uses)
+            if dtype == torch.bfloat16:
+                pairs, bound = _block_work(t, hq, d, kw, segs)
+                shift = kw["q_offset"] - kw["k_offset"]
+                row["visible_pairs"] = pairs
+                row["fwd_ms"] = time_ms(
+                    lambda: F.flash_attention(q, k, v, **skw), iters=3,
+                    warmup=1)
+                row["bwd_ms"] = _time_block_bwd(q, k, v, do, lse, delta,
+                                                skw, shift)
+                row["bound_ms"] = bound
+                row["library_ms"] = None
+                if tag in BLOCK_LIBRARY_CASES:
+                    row["library_ms"] = time_ms(_efficient_attention(
+                        q, k, v, BLOCK_LIBRARY_CASES[tag]), iters=3, warmup=1)
+            cases.append(row)
+            del q, k, v, o, lse, op, lsep, do, dlse, delta, want, split, fused
+        torch.cuda.empty_cache()
+
+    compose = _block_composition(gen)
+
+    # the main path's chunk (T_loc 8192), bf16: the diagonal block every rank
+    # attends and the full past block rank 1 attends, forward and split
+    # backward (the kernels phase 9 runs) held against the plain versions per
+    # kv head; then the past block is timed
+    t = MAIN_T_LOC
+    main_checks = []
+    for tag, kw in (("diagonal", dict(q_offset=0, k_offset=0)),
+                    ("past", dict(q_offset=t, k_offset=0))):
+        q = _rand((1, t, hq, d), torch.bfloat16, gen)
+        k = _rand((1, t, hkv, d), torch.bfloat16, gen)
+        v = _rand((1, t, hkv, d), torch.bfloat16, gen)
+        o, lse = F.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        op, lsep = _block_plain_fwd(q, k, v, **kw)
+        use = tolerance_use(o, op, torch.bfloat16)
+        lerr = max_err(lse, lsep)
+        err = max_err(o, op)
+        del op, lsep
+        do, dlse = _block_cotangents(o, lse, gen)
+        delta = F.block_delta(do, o, dlse)
+        got = F.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        want = _block_plain_bwd(q, k, v, do, lse, delta, **kw)
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+        uses = {label: bwd_tolerance_use(a, b, torch.bfloat16)
+                for label, a, b in zip(("dq", "dk", "dv"), got, want)}
+        errs = {label: max_err(a, b)
+                for label, a, b in zip(("dq", "dk", "dv"), got, want)}
+        if not (finite and use <= 1.0 and lerr <= LSE_TOL
+                and max(uses.values()) <= 1.0):
+            raise AssertionError(
+                f"flash_block T_loc {t} {tag}: forward uses {use}, lse err "
+                f"{lerr}; split backward finite {finite}, uses {uses}")
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], err,
+                                    *errs.values())
+        worst_use = max(worst_use, use, *uses.values())
+        main_checks.append({"case": tag, "offsets": [kw["q_offset"],
+                                                     kw["k_offset"]],
+                            "tolerance_use": use, "lse_err": lerr,
+                            "max_abs_err": err, "bwd_split_tolerance_use": uses,
+                            "bwd_split_max_abs_err": errs})
+        del got, want
+        if tag == "diagonal":
+            del q, k, v, o, lse, do, dlse, delta
+        torch.cuda.empty_cache()
+    ms = time_ms(lambda: F.flash_attention(q, k, v, **kw), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: _block_plain_fwd(q, k, v, **kw), iters=2,
+                       warmup=1)
+    bwd_ms = _time_block_bwd(q, k, v, do, lse, delta, kw, t)
+    pairs, bound = _block_work(t, hq, d, kw)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + hq * t * 4
+    # yardstick: one library call with its lse, the same non-causal block
+    lib = _efficient_attention(q, k, v, False)
+    lib_err = max_err(lib()[0].transpose(1, 2), o)
+    library_ms = time_ms(lib, iters=5, warmup=1)
+    del q, k, v, o, lse, do, dlse, delta, lib
+    torch.cuda.empty_cache()
+    by_ops = bound["fwd"] / 1e3
+    by_bytes = nbytes / H100_BYTES_PER_S
+    return {
+        "name": "flash_block", "route": "cuda",
+        "source": "d9d_tpu_torch/csrc/flash_fwd.cu",
+        "backward_source": "d9d_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "d9d_tpu/ops/attention/pallas_flash.py:709",
+        "max_abs_err": worst[torch.bfloat16],
+        "max_abs_err_fp32": worst[torch.float32],
+        "tolerance_use": worst_use,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": library_ms,
+        "bwd_split_ms": bwd_ms["dq"] + bwd_ms["dkv"],
+        "bwd_bound_ms": bound["dq"] + bound["dkv"],
+    }, {
+        "cases": cases, "tolerance": TOLERANCE,
+        "bwd_tolerance": BWD_TOLERANCE,
+        "composition": compose, "main_shape_checks": main_checks,
+        "timed_shape": {"B": 1, "T_loc": t, "Hq": hq, "Hkv": hkv, "D": d,
+                        "dtype": "bfloat16", "q_offset": t, "k_offset": 0,
+                        "causal": True, "visible_pairs": pairs},
+        "timed_ms_is": "the B4 forward kernel; bwd_ms the backward kernels "
+                       "alone at the same offsets",
+        "timed_bwd_ms": bwd_ms, "timed_bound_ms": bound,
+        "plain_ms_is": "the plain forward, one kv head at a time",
+        "library_ms_is": "_scaled_dot_product_efficient_attention with its "
+                         "lse, the same non-causal block, kv heads repeated; "
+                         "null in a case where no single call takes the "
+                         "block's offsets (future, window, segments)",
+        "library_max_abs_diff": lib_err,
+    }
+
+
+def _time_block_bwd(q, k, v, do, lse, delta, kw, shift):
+    """ms of each backward kernel alone at the block's shift (the fused one
+    into a preallocated fp32 dq)."""
+    from d9d_tpu_torch.ops.attention import flash as F
+
+    d = q.shape[-1]
+    qs, ks = kw.get("q_segments"), kw.get("kv_segments")
+    dq = torch.empty_like(q)
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = 0 if q.dtype == torch.float32 else 1
+
+    def launch(kernel):
+        F._launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks,
+                      dq32 if kernel == 2 else dq, dk, dv, code, d ** -0.5,
+                      kw.get("causal", True), kw.get("window_size"), shift)
+
+    return {name: time_ms(lambda n=n: launch(n), iters=3, warmup=1)
+            for name, n in (("dq", 0), ("dkv", 1), ("fused", 2))}
+
+
+def _block_composition(gen):
+    """Causal attention over BLOCK_COMPOSE_T tokens as 4 chunks through
+    flash_attention_block + combine_attention_chunks (autograd through
+    FlashBlockFunction) against the whole-sequence flash kernels (B1/B2),
+    forward and grads, fp32; then the same chunks with both offsets forced
+    to 0, which must miss by BLOCK_MISS_MIN_USE times the rule."""
+    from d9d_tpu_torch.ops.attention import flash as F
+
+    hq, hkv, d, n = 32, 8, 128, 4
+    t = BLOCK_COMPOSE_T
+    tl = t // n
+    dtype = torch.float32
+    q = _rand((1, t, hq, d), dtype, gen).requires_grad_()
+    k = _rand((1, t, hkv, d), dtype, gen).requires_grad_()
+    v = _rand((1, t, hkv, d), dtype, gen).requires_grad_()
+    do = _rand((1, t, hq, d), dtype, gen)
+
+    def chunked(zero_offsets):
+        outs = []
+        for i in range(n):
+            o = torch.zeros((1, tl, hq, d), device="cuda")
+            lse = torch.full((1, hq, tl), F.NEG_BIG, device="cuda")
+            for j in range(i + 1):
+                offs = (0, 0) if zero_offsets else (i * tl, j * tl)
+                ob, lb = F.flash_attention_block(
+                    q[:, i * tl:(i + 1) * tl], k[:, j * tl:(j + 1) * tl],
+                    v[:, j * tl:(j + 1) * tl], q_offset=offs[0],
+                    k_offset=offs[1])
+                o, lse = F.combine_attention_chunks(o, lse, ob, lb)
+            outs.append(o)
+        return torch.cat(outs, dim=1)
+
+    got = chunked(False)
+    got_g = torch.autograd.grad(got, (q, k, v), do)
+    want = F.FlashAttentionFunction.apply(q, k, v, None, None, None, True,
+                                          None, None, False)
+    want_g = torch.autograd.grad(want, (q, k, v), do)
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    use = tolerance_use(got, want, dtype)
+    g_use = {label: bwd_tolerance_use(a, b, dtype)
+             for label, a, b in zip(("dq", "dk", "dv"), got_g, want_g)}
+    with torch.no_grad():
+        miss = tolerance_use(chunked(True), want, dtype)
+    if use > 1.0 or max(g_use.values()) > 1.0 or miss < BLOCK_MISS_MIN_USE:
+        raise AssertionError(
+            f"flash_block composition: forward uses {use}, grads {g_use}, "
+            f"offsets-zeroed control {miss} (must exceed "
+            f"{BLOCK_MISS_MIN_USE})")
+    del q, k, v, do, got, got_g, want, want_g
+    torch.cuda.empty_cache()
+    return {"T": t, "chunks": n, "dtype": "float32", "heads": [hq, hkv],
+            "forward_tolerance_use": use, "grad_tolerance_use": g_use,
+            "offsets_zeroed_tolerance_use": miss}
+
+
 # Tolerances of the MoE FFN kernels vs their plain versions, same inputs.
 # Same rule as above, other constants. fp32: both sides multiply in exact
 # fp32 and differ in the order of sums only. bf16: both accumulate the bf16
@@ -1266,13 +1660,16 @@ def phase_kernels():
     bwd, detail3 = check_flash_bwd(gen)
     say(phase="kernels", kernel="flash_bwd", **detail3)
     torch.cuda.empty_cache()
+    kb, detailb = check_flash_block(gen)
+    say(phase="kernels", kernel="flash_block", **detailb)
+    torch.cuda.empty_cache()
     moe, detail4 = check_moe_ffn(gen)
     say(phase="kernels", kernel="moe_ffn", **detail4)
     torch.cuda.empty_cache()
     k10, detail10 = check_stochastic_round(gen)
     say(phase="kernels", kernel="stochastic_round", **detail10)
     torch.cuda.empty_cache()
-    return [k1, k2, k9, *bwd, *moe, k10]
+    return [k1, k2, k9, *bwd, kb, *moe, k10]
 
 
 # ---------------------------------------------------------------------------
@@ -1280,8 +1677,8 @@ def phase_kernels():
 
 
 KERNEL_NAMES = ("flash_fwd", "flash_decode", "flash_decode_paged",
-                "flash_bwd_dq", "flash_bwd_dkv",
-                "flash_bwd_fused") + MOE_KERNELS + ("stochastic_round",)
+                "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused",
+                "flash_block") + MOE_KERNELS + ("stochastic_round",)
 
 
 def _moe_wrappers():
@@ -1309,8 +1706,9 @@ def reset_counters(model=None):
         fn.launches = 0
         fn.plain_calls = 0
     for name in ("dq_launches", "dkv_launches", "fused_launches",
-                 "plain_calls"):
+                 "block_launches", "plain_calls"):
         setattr(flash_attention_bwd, name, 0)
+    flash_attention.block_launches = 0
     group_sizes_on_host.readbacks = 0
     if model is not None:
         model.sdpa.eager_calls = 0
@@ -1338,6 +1736,10 @@ def read_counters(model=None):
         "flash_bwd_dq": flash_attention_bwd.dq_launches,
         "flash_bwd_dkv": flash_attention_bwd.dkv_launches,
         "flash_bwd_fused": flash_attention_bwd.fused_launches,
+        # the flash kernels' launches in block mode (B4: ring steps); they
+        # are counted under flash_fwd / flash_bwd_* as well
+        "flash_block": flash_attention.block_launches
+        + flash_attention_bwd.block_launches,
     }
     out.update({name: fn.launches for name, fn in moe.items()})
     out["stochastic_round"] = stochastic_round_to_bf16.launches
@@ -2575,6 +2977,307 @@ def phase_full_width_train_bf16():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: context-parallel training on the card (ring attention, B4)
+#
+# Two ranks share the one card: two processes on cuda:0 over gloo (NCCL
+# refuses two ranks on one device; gloo moves host memory, so the ring's
+# transfers and the gradient all-reduce cross through pinned host memory).
+# The run proves the kernels and the ring on the card and gives their
+# times; it measures no context-parallel scaling. On a machine with N
+# cards, ``python3 chip_smoke.py --cp-only nccl N`` runs this phase alone
+# with one card per rank over NCCL (device tensors sent directly).
+
+CP_RANKS = 2
+CP_CHILD_TIMEOUT_S = 900
+CP_LAYERS = 2        # of Qwen3-8B's 36
+CP_SEQ = 16384       # global tokens per step, T_loc = 8192 per rank
+CP_STEPS = 3
+CP_COMPARE_LAYERS = 1
+CP_COMPARE_SEQ = 4096
+CP_TRAIN_TOL = 1e-4  # ring vs flash backend, fp32: sums in other orders
+
+
+def _cp_parts(layers, dtype, seq, steps, seed):
+    """(provider factory, trainer factory) of the phase-9 runs: Qwen3-8B
+    widths at ``layers`` layers, fp32 parameters, ``dtype`` compute, full
+    remat, AdamW, global batch 1 x ``seq``, weights from ``seed``."""
+    import dataclasses
+
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        ModelProvider,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
+    from d9d_tpu_torch.nn.sdpa import SdpaFlashConfig, SdpaRingConfig
+    from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
+
+    _, schedule = _train_parts()
+    cfg = dataclasses.replace(Qwen3DenseConfig.qwen3_8b(), num_layers=layers)
+    data = _Batches(cfg.vocab_size, steps, 1, seq, seed=seed + 1)
+
+    class Provider(ModelProvider):
+        def build_module(self, ctx):
+            sdpa = (build_sdpa_backend(SdpaRingConfig(), ctx=ctx)
+                    if ctx.cp_size > 1 else
+                    build_sdpa_backend(SdpaFlashConfig()))
+            return Qwen3DenseCausalLM(cfg, sdpa, dtype=dtype,
+                                      param_dtype=torch.float32,
+                                      device=ctx.device, seed=seed)
+
+    def trainer(ctx):
+        return Trainer(
+            ctx=ctx,
+            config=TrainerConfig(global_batch_size=1, microbatch_size=1,
+                                 seq_len=seq, total_steps=steps, log_every=1,
+                                 max_grad_norm=1.0),
+            model_provider=Provider(), dataset_provider=data,
+            task=CausalLMTask(),
+            optimizer_provider=AdamWProvider(weight_decay=0.1),
+            # the warmup needs 2 steps; a 1-step run takes the base rate
+            learning_rate=schedule(3e-4, steps) if steps > 2 else 3e-4)
+
+    return cfg, trainer
+
+
+def _cp_compare_trainer(ctx):
+    """One fp32 step at Qwen3-8B widths and CP_COMPARE_LAYERS layers:
+    ring (cp ranks) against the flash backend (one process)."""
+    return _cp_parts(CP_COMPARE_LAYERS, torch.float32, CP_COMPARE_SEQ, 1,
+                     seed=3)[1](ctx)
+
+
+def _cp_counters():
+    """The kernel counters of read_counters, the ring's and the
+    collectives'."""
+    from d9d_tpu_torch.core.collectives import all_reduce_sum, broadcast
+    from d9d_tpu_torch.ops.attention.ring import ring_attention
+
+    return {
+        **read_counters(),
+        "ring_skipped_blocks": ring_attention.skipped_blocks,
+        "ring_host_staged_bytes": ring_attention.host_staged_bytes,
+        "ring_eager_blocks": ring_attention.eager_blocks,
+        "all_reduce_calls": all_reduce_sum.calls,
+        "all_reduce_seconds": all_reduce_sum.seconds,
+        "all_reduce_host_staged_bytes": all_reduce_sum.host_staged_bytes,
+        "broadcast_host_staged_bytes": broadcast.host_staged_bytes,
+    }
+
+
+def _cp_reset_counters():
+    from d9d_tpu_torch.core.collectives import all_reduce_sum, broadcast
+    from d9d_tpu_torch.ops.attention.ring import ring_attention
+
+    reset_counters()
+    ring_attention.skipped_blocks = 0
+    ring_attention.host_staged_bytes = 0
+    ring_attention.eager_blocks = 0
+    all_reduce_sum.calls = 0
+    all_reduce_sum.seconds = 0.0
+    all_reduce_sum.host_staged_bytes = 0
+    broadcast.host_staged_bytes = 0
+
+
+def _cp_devices(world, backend):
+    """gloo: every rank on the one card; nccl: one card per rank."""
+    if backend == "nccl":
+        return [f"cuda:{r}" for r in range(world)]
+    return ["cuda:0"] * world
+
+
+def cp_worker(rank, world, rdzv, backend):
+    """One rank of phase 9 (``chip_smoke.py --cp-worker RANK WORLD
+    RENDEZVOUS BACKEND``): the fp32 comparison step, then CP_STEPS steps of
+    the main run; every result is a JSON line tagged with the rank."""
+    import gc
+    import math
+    import statistics
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.ops import kernel_lib
+
+    def say_rank(**obj):
+        say(rank=rank, **obj)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    try:
+        ctx = MeshParameters(cp_shard=world).build(_cp_devices(world, backend))
+        trainer = _cp_compare_trainer(ctx)
+        hist = trainer.train()
+        say_rank(phase="cp_train", entry="compare_step",
+                 loss=hist[0]["loss"], grad_norm=hist[0]["grad_norm"])
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg, make = _cp_parts(CP_LAYERS, torch.bfloat16, CP_SEQ, CP_STEPS,
+                              seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        _cp_reset_counters()
+        t0 = time.perf_counter()
+        trainer = make(ctx)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build = _cp_counters()
+        _cp_reset_counters()
+        hist = trainer.train()
+        torch.cuda.synchronize()
+        got = _cp_counters()
+        vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+        if len(hist) != CP_STEPS or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"cp rank {rank}: bad history {vals}")
+        walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                       for a, b in zip(hist, hist[1:])]
+        ms_step = 1e3 * statistics.median(walls[1:])
+        n_params = sum(p.numel() for p in trainer.module.parameters())
+        say_rank(phase="cp_train", entry="Trainer.train",
+                 model="qwen3_8b", layers=cfg.num_layers,
+                 layers_reduced_from=36, params=n_params,
+                 cp=world, t_loc=CP_SEQ // world, global_tokens=CP_SEQ,
+                 setup={"param_dtype": "float32", "dtype": "bfloat16",
+                        "remat": cfg.remat_policy, "optimizer": "AdamW",
+                        "backend": backend,
+                        "device": str(ctx.device) + (
+                            " (shared)" if backend == "gloo" else "")},
+                 steps=[{"step": h["step"], "loss": h["loss"],
+                         "grad_norm": h["grad_norm"]} for h in hist],
+                 ms_per_step=ms_step, ms_per_step_all=[1e3 * w for w in walls],
+                 ms_per_step_is=(
+                     "two ranks time-share one card; gradients cross "
+                     "loopback TCP: no CP throughput" if backend == "gloo"
+                     else f"one card per rank over {backend}; T_loc "
+                          f"{CP_SEQ // world}, not the gloo run's"),
+                 grad_all_reduce_ms_per_step=(
+                     1e3 * got["all_reduce_seconds"] / CP_STEPS),
+                 build_seconds=build_s,
+                 param_broadcast_host_staged_bytes=build[
+                     "broadcast_host_staged_bytes"],
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 counters=got)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+
+
+def phase_cp_train(ranks=CP_RANKS, backend="gloo",
+                   timeout_s=CP_CHILD_TIMEOUT_S):
+    """Phase 9 in the parent: the one-process reference step, then
+    ``ranks`` child processes of this script on the card(s); their lines
+    are checked and re-emitted. Returns the launches of the main run (all
+    ranks)."""
+    import gc
+    import json as _json
+    import os
+    import tempfile
+
+    from d9d_tpu_torch.core import MeshParameters
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 9 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = _cp_compare_trainer(MeshParameters().build())
+    ref = trainer.train()[0]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(ranks):
+            out = open(os.path.join(tmp, f"rank{r}.out"), "w+")
+            err = open(os.path.join(tmp, f"rank{r}.err"), "w+")
+            logs.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cp-worker",
+                 str(r), str(ranks), f"file://{tmp}/rendezvous", backend],
+                stdout=out, stderr=err, env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for (out, err), p in zip(logs, procs):
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    for r, (p, (out, err)) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(
+                f"cp rank {r} exited {p.returncode}:\n{out[-2000:]}\n"
+                f"{err[-4000:]}")
+    lines = [[_json.loads(x) for x in out.splitlines() if x.startswith("{")]
+             for out, _ in texts]
+    for rank_lines in lines:
+        for obj in rank_lines:
+            say(**obj)
+
+    def entry(r, name):
+        return next(o for o in lines[r] if o.get("entry") == name)
+
+    cmp = [entry(r, "compare_step") for r in range(ranks)]
+    main = [entry(r, "Trainer.train") for r in range(ranks)]
+    for r in range(1, ranks):
+        if (cmp[r]["loss"], cmp[r]["grad_norm"]) != (
+                cmp[0]["loss"], cmp[0]["grad_norm"]) or (
+                main[r]["steps"] != main[0]["steps"]):
+            raise AssertionError(f"cp ranks disagree: {cmp} {main}")
+    rel = {k: abs(cmp[0][k] - ref[k]) / max(abs(ref[k]), 1e-12)
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > CP_TRAIN_TOL:
+        raise AssertionError(
+            f"cp compare step vs one process: {rel} (tolerance "
+            f"{CP_TRAIN_TOL})")
+    # per step and layer the forward runs twice (remat) and the backward
+    # once; rank r attends r + 1 chunks (the rest lie in its causal future)
+    per_fwd = CP_STEPS * CP_LAYERS * 2
+    per_bwd = CP_STEPS * CP_LAYERS
+    for r, m in enumerate(main):
+        c = m["counters"]
+        n_fwd, n_bwd = per_fwd * (r + 1), 2 * per_bwd * (r + 1)
+        want = {"flash_block": n_fwd + n_bwd, "flash_fwd": n_fwd,
+                "flash_bwd_dq": n_bwd // 2, "flash_bwd_dkv": n_bwd // 2,
+                "plain_calls": 0, "eager_calls": 0, "ring_eager_blocks": 0,
+                "ring_skipped_blocks":
+                    (per_fwd + per_bwd) * (ranks - 1 - r)}
+        if {k: c[k] for k in want} != want:
+            raise AssertionError(f"cp rank {r}: counters {c}, expected {want}")
+    say(phase="cp_train", entry="summary", ranks=ranks, backend=backend,
+        compare={"layers": CP_COMPARE_LAYERS, "seq": CP_COMPARE_SEQ,
+                 "dtype": "float32", "one_process": {
+                     k: ref[k] for k in ("loss", "grad_norm")},
+                 "ring": {k: cmp[0][k] for k in ("loss", "grad_norm")},
+                 "rel_diff": rel, "tolerance": CP_TRAIN_TOL},
+        losses=[s_["loss"] for s_ in main[0]["steps"]],
+        ranks_equal=True, seconds=time.perf_counter() - t0)
+    return {"flash_block": sum(m["counters"]["flash_block"] for m in main)}
+
+
 def main():
     import gc
 
@@ -2593,7 +3296,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_full_width_train, phase_full_width_train_moe,
-                  phase_full_width_train_bf16):
+                  phase_full_width_train_bf16, phase_cp_train):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()
@@ -2613,4 +3316,14 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cp-worker"]:
+        cp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    elif sys.argv[1:2] == ["--cp-only"]:
+        # phase 9 alone: python3 chip_smoke.py --cp-only nccl 4
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="cp_train", launches=phase_cp_train(
+            int(sys.argv[3]), sys.argv[2], timeout_s=300))
+    else:
+        main()

@@ -1,0 +1,141 @@
+"""Collectives over a process group (a subset of
+``d9d_tpu/core/collectives.py``): the sum all-reduce of a list of tensors
+and the broadcast of a list of tensors from the group's rank 0, both in
+place.
+
+The JAX package names mesh axes inside ``shard_map``; the port names a
+``torch.distributed`` group. Tensors travel in buckets of at most
+``BUCKET_BYTES``: each bucket is one collective call on one flat buffer,
+filled from and emptied back into the tensors. The buffer lies where the
+group's backend takes it: on the tensors' device, or — for device tensors
+on a gloo group, which moves host memory only — in pinned host memory, so
+the device tensors cross through the host. The backend of the group
+decides, as set by the caller of ``init_distributed``; nothing falls back.
+"""
+
+import time
+
+import torch
+import torch.distributed as dist
+
+BUCKET_BYTES = 256 << 20
+
+_buffers: dict[tuple, torch.Tensor] = {}
+
+
+def stages_through_host(group, device: torch.device) -> bool:
+    """Do tensors on ``device`` cross ``group`` through pinned host memory
+    (a gloo group and a CUDA device)?"""
+    return (device.type == "cuda"
+            and dist.get_backend(group) == dist.Backend.GLOO)
+
+
+def staging_buffer(name: str, numel: int, dtype: torch.dtype,
+                   device: torch.device, host: bool) -> torch.Tensor:
+    """A reusable flat buffer of at least ``numel`` elements, kept per
+    (name, dtype, place): pinned host memory with ``host``, else on
+    ``device``. Grows, never shrinks."""
+    place = "host" if host else str(device)
+    key = (name, dtype, place)
+    buf = _buffers.get(key)
+    if buf is None or buf.numel() < numel:
+        if host:
+            buf = torch.empty(numel, dtype=dtype, pin_memory=True)
+        else:
+            buf = torch.empty(numel, dtype=dtype, device=device)
+        _buffers[key] = buf
+    return buf[:numel]
+
+
+def _buckets(flats: list[torch.Tensor], cap: int):
+    """Runs of (flat tensor, start, stop) of at most ``cap`` elements in
+    all; a tensor larger than the room left is split across buckets."""
+    bucket, used = [], 0
+    for flat in flats:
+        pos = 0
+        while pos < flat.numel():
+            n = min(flat.numel() - pos, cap - used)
+            bucket.append((flat, pos, pos + n))
+            used, pos = used + n, pos + n
+            if used == cap:
+                yield bucket, used
+                bucket, used = [], 0
+    if bucket:
+        yield bucket, used
+
+
+def _by_dtype(tensors):
+    groups: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("collectives take contiguous tensors")
+        groups.setdefault(t.dtype, []).append(t.view(-1))
+    return groups
+
+
+def _bucketed(name, tensors, group, call, fill, write_back):
+    """Bucket by bucket: copy ``tensors`` into the staging buffer when
+    ``fill``, run ``call(buffer)``, copy the buffer back into them when
+    ``write_back``. Returns the bytes copied through the host."""
+    staged = 0
+    for dtype, flats in _by_dtype(tensors).items():
+        device = flats[0].device
+        host = stages_through_host(group, device)
+        cap = max(1, BUCKET_BYTES // flats[0].element_size())
+        total = sum(f.numel() for f in flats)
+        buf = staging_buffer(name, min(cap, total), dtype, device, host)
+        for bucket, used in _buckets(flats, cap):
+            chunk, off = buf[:used], 0
+            if fill:
+                for flat, a, b in bucket:
+                    chunk[off:off + b - a].copy_(flat[a:b])
+                    off += b - a
+            call(chunk)
+            if write_back:
+                off = 0
+                for flat, a, b in bucket:
+                    flat[a:b].copy_(chunk[off:off + b - a])
+                    off += b - a
+            if host:
+                staged += used * chunk.element_size() * (fill + write_back)
+    return staged
+
+
+def all_reduce_sum(tensors: list[torch.Tensor], group=None) -> None:
+    """Sum every tensor over ``group`` in place (every rank passes tensors
+    of the same shapes and dtypes in the same order). Counts
+    ``all_reduce_sum.calls``, ``host_staged_bytes`` (copied out to the host
+    and back) and ``seconds`` (host time inside the call: the whole
+    transfer when it is staged through the host, the enqueue only on a
+    backend that takes device tensors)."""
+    group = group or dist.group.WORLD
+    t0 = time.perf_counter()
+    all_reduce_sum.host_staged_bytes += _bucketed(
+        "all_reduce", tensors, group,
+        lambda buf: dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group),
+        fill=True, write_back=True)
+    all_reduce_sum.calls += 1
+    all_reduce_sum.seconds += time.perf_counter() - t0
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.host_staged_bytes = 0
+all_reduce_sum.seconds = 0.0
+
+
+def broadcast(tensors: list[torch.Tensor], group=None, src: int = 0) -> None:
+    """Overwrite every tensor with the group rank ``src``'s, in place."""
+    group = group or dist.group.WORLD
+    root = dist.get_global_rank(group, src)
+    mine = dist.get_rank(group) == src
+    broadcast.host_staged_bytes += _bucketed(
+        "broadcast", tensors, group,
+        lambda buf: dist.broadcast(buf, src=root, group=group),
+        fill=mine, write_back=not mine)
+
+
+broadcast.host_staged_bytes = 0
+
+
+__all__ = ["BUCKET_BYTES", "all_reduce_sum", "broadcast", "staging_buffer",
+           "stages_through_host"]

@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(MMA_NT) attn_mma_kernel(const AttnParams p) {
   const int rows = p.g * p.T;
   const int r0 = blockIdx.x * BM;
   const int r_last = min(r0 + BM, rows) - 1;
-  const int base = p.offsets ? p.offsets[b] : 0;
+  const int base = (p.offsets ? p.offsets[b] : 0) + p.shift;
 
   const bf16* qg = static_cast<const bf16*>(p.q);
   const bf16* kg = static_cast<const bf16*>(p.k) + (long long)b * p.k_sb +

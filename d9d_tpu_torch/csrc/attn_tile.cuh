@@ -16,7 +16,11 @@
 //
 // Masks (all optional but the bounds): key < kv_len, key <= q_pos (causal),
 // key > q_pos - window, tag equality (segment ids for prefill, key validity
-// for decode). Probabilities are gated by the mask itself, not only by the
+// for decode). q_pos is the row's token index plus a per-batch-row base
+// (decode: the cache write index offsets[b]) plus `shift` (prefill at global
+// offsets, the ring-attention block: q_offset - k_offset, of any sign; a
+// block wholly in the causal future has an empty key range and visits no
+// tile). Probabilities are gated by the mask itself, not only by the
 // -1e30 sentinel, so a row that sees no key keeps l = 0 and comes out as
 // exact zeros with lse = -1e30 + log(1e-30).
 //
@@ -75,6 +79,9 @@ struct AttnParams {
   int row_pages;         // page-table entries per batch row (S = row_pages * page_size)
   const float* k_scale;  // int8 pools: [P, Hkv, page_size] fp32 scales
   const float* v_scale;
+  // flash prefill at global offsets (ring attention): query row t sits at
+  // key position t + shift, shift = q_offset - k_offset; 0 everywhere else
+  int shift;
 };
 
 template <typename T> struct Vec;
@@ -206,7 +213,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(const AttnParams p) {
   const int rows = p.g * p.T;
   const int r0 = blockIdx.x * RT;
   const int r_last = min(r0 + RT, rows) - 1;
-  const int base = p.offsets ? p.offsets[b] : 0;
+  const int base = (p.offsets ? p.offsets[b] : 0) + p.shift;
 
   const T* qg = static_cast<const T*>(p.q);
   // contiguous mode: this (batch row, kv head)'s cache slice

@@ -44,6 +44,17 @@
 //   D=128). The order in which the blocks' atomic sums land is not fixed, so
 //   the fused dq may differ from run to run in the last bits.
 //
+// Global offsets (B4, `flash_attention_block` at pallas_flash.py:709: the
+// three TPU kernels with `has_positions`). A ring-attention step attends a
+// local query chunk against a rotated key chunk; only q_offset - k_offset
+// matters, passed by value as `shift`: query row t sits at key position
+// t + shift in `visible()` and in every key or query range below. shift may
+// be negative (a chunk in the causal future: every range is empty, nothing
+// is visited and dq, dk, dv are written as zeros) or large (the full past).
+// Tiles outside the ranges are never visited, and a loop over an empty
+// range does not run at all, so at shift 0 the kernels visit exactly the
+// tiles they visited before.
+//
 // Tensor cores (mma / wgmma), TMA and asynchronous tile loads are left to
 // later work; the kernels are synchronous: a tile is loaded, then used.
 #include "attn_tile.cuh"
@@ -72,6 +83,7 @@ struct BwdParams {
   float scale;
   int causal;
   int window;            // -1 = none
+  int shift;             // q_offset - k_offset: row t at key position t + shift
 };
 
 constexpr int BWD_RQ = 64;   // query rows per tile
@@ -161,7 +173,7 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dq_kernel(const BwdParams p) {
     const int r = r0 + tid;
     const bool ok = r < rows;
     const int t = ok ? r % p.T : 0;
-    rpos_s[tid] = ok ? t : ROW_INVALID;
+    rpos_s[tid] = ok ? t + p.shift : ROW_INVALID;
     rtag_s[tid] = (ok && p.q_tag) ? p.q_tag[(long long)b * p.T + t] : 1;
     // a row past the end gets lse 0: with s = -1e30 its p is exactly 0
     lse_s[tid] = ok ? p.lse[bs * rows + r] : 0.f;
@@ -177,9 +189,11 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dq_kernel(const BwdParams p) {
     t_hi = r_last % p.T;
   }
   int k_begin = 0, k_end = p.T;
-  if (p.causal) k_end = min(k_end, t_hi + 1);
-  if (p.window >= 0) k_begin = max(k_begin, t_lo - p.window + 1);
-  const int j_first = (k_begin / BK) * BK;
+  if (p.causal) k_end = min(k_end, t_hi + p.shift + 1);
+  if (p.window >= 0) k_begin = max(k_begin, t_lo + p.shift - p.window + 1);
+  // an empty range (a chunk in the causal future, or wholly behind the
+  // window) visits no tile: dq is written as zeros
+  const int j_first = k_begin < k_end ? (k_begin / BK) * BK : k_end;
 
   float dq_acc[RPO];
 #pragma unroll
@@ -322,9 +336,13 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
     ktag_s[tid] = (p.k_tag && key < p.T) ? p.k_tag[(long long)b * p.T + key] : 1;
   }
 
-  // query tokens that can see a key of this tile
-  const int i_begin = p.causal ? j0 : 0;
-  const int i_end = p.window >= 0 ? min(p.T, j_last + p.window) : p.T;
+  // query tokens that can see a key of this tile: key j is visible to
+  // token i when j <= i + shift (causal) and j > i + shift - window
+  const int i_begin = p.causal ? min(max(j0 - p.shift, 0), p.T) : 0;
+  const int i_end =
+      p.window >= 0 ? min(max(j_last + p.window - p.shift, 0), p.T) : p.T;
+  // an empty range visits no query tile: dk and dv are written as zeros
+  const int i_first = i_begin < i_end ? (i_begin / RQ) * RQ : i_end;
 
   float dk_acc[KPT], dv_acc[KPT];
 #pragma unroll
@@ -334,14 +352,14 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
 
   for (int ig = 0; ig < p.g; ++ig) {
     const int hq = hkv * p.g + ig;
-    for (int i0 = (i_begin / RQ) * RQ; i0 < i_end; i0 += RQ) {
+    for (int i0 = i_first; i0 < i_end; i0 += RQ) {
       __syncthreads();  // previous q tile consumed (and k/v tiles ready)
       load_rows<T, D, RQ, NT>(q_s, qb, p.q_st, p.q_sh, hq, p.T, i0, p.T);
       load_rows<T, D, RQ, NT>(do_s, ob, p.o_st, p.o_sh, hq, p.T, i0, p.T);
       if (tid < RQ) {
         const int i = i0 + tid;
         const bool ok = i < p.T;
-        rpos_s[tid] = ok ? i : ROW_INVALID;
+        rpos_s[tid] = ok ? i + p.shift : ROW_INVALID;
         rtag_s[tid] = (ok && p.q_tag) ? p.q_tag[(long long)b * p.T + i] : 1;
         lse_s[tid] = ok ? p.lse[bs * rows + ig * p.T + i] : 0.f;
         dl_s[tid] = ok ? p.delta[bs * rows + ig * p.T + i] : 0.f;
@@ -500,7 +518,8 @@ using d9d::BwdParams;
 // head_dim: q/do [B, T, Hq, D]-addressed, k/v [B, T, Hkv, D]-addressed.
 // Outputs are contiguous: dq [B, T, Hq, D], dk/dv [B, T, Hkv, D]. lse and
 // delta are contiguous [B, Hq, T] fp32, q_seg/kv_seg contiguous int32 [B, T]
-// or both null. Launches on `stream`, allocates nothing, never synchronizes.
+// or both null; shift = q_offset - k_offset (0 for ordinary training).
+// Launches on `stream`, allocates nothing, never synchronizes.
 extern "C" int d9d_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* q_seg, const void* kv_seg,
@@ -510,7 +529,7 @@ extern "C" int d9d_flash_bwd(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, int shift, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || kernel < 0 ||
       kernel > 2) {
     return (int)cudaErrorInvalidValue;
@@ -529,7 +548,7 @@ extern "C" int d9d_flash_bwd(
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
-  p.scale = scale; p.causal = causal; p.window = window;
+  p.scale = scale; p.causal = causal; p.window = window; p.shift = shift;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? d9d::dispatch_bwd<float>(p, D, kernel, s)
                   : dtype == 1 ? d9d::dispatch_bwd<__nv_bfloat16>(p, D, kernel, s)

@@ -13,6 +13,16 @@
 // the ~295 flop/byte ridge of the H100, so the least time is flops over the
 // bf16 tensor-core rate.
 //
+// Also the forward of `flash_attention_block` (pallas_flash.py:709, the TPU
+// kernel with `has_positions`, masks by `_mask_block` and skipping by
+// `_skip_block`): q rows at global positions q_offset + [0, T) attend keys
+// at k_offset + [0, T). Only the difference matters, so the launcher takes
+// one by-value `shift` = q_offset - k_offset (no device tensor, no
+// readback) and the cores place query row t at key position t + shift: the
+// causal and window masks and the key range of each block follow from it. A
+// block wholly in the causal future (shift <= -T) has an empty key range:
+// it visits no tile and writes o = 0, lse = -1e30 + log(1e-30).
+//
 // Design: one block per (batch row, kv head, tile of query rows of the GQA
 // group); the loop over key tiles inside the block replaces the Pallas grid's
 // sequential kv dimension and its VMEM scratch. Key tiles wholly in the
@@ -43,7 +53,8 @@ cudaError_t dispatch_fwd_bf16(const AttnParams& p, int D, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; head_dim is
 // contiguous. q/o are [B, T, Hq, D]-addressed, k/v [B, T, Hkv, D]-addressed,
 // lse is contiguous [B, Hq, T] fp32, q_seg/kv_seg contiguous int32 [B, T] or
-// both null. Launches on `stream`, allocates nothing, never synchronizes.
+// both null; shift = q_offset - k_offset (0 for ordinary prefill). Launches
+// on `stream`, allocates nothing, never synchronizes.
 extern "C" int d9d_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_seg, const void* kv_seg,
@@ -52,7 +63,7 @@ extern "C" int d9d_flash_fwd(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, int shift, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -68,7 +79,7 @@ extern "C" int d9d_flash_fwd(
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_st;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
-  p.scale = scale; p.causal = causal; p.window = window;
+  p.scale = scale; p.causal = causal; p.window = window; p.shift = shift;
   p.n_splits = 1;
   p.split_len = ((T + 63) / 64) * 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,16 @@
 """Trainer: wires providers into the step and runs the loop (counterpart of
-``d9d_tpu/loop/train.py``), on one device, without pipeline parallelism or
-PEFT.
+``d9d_tpu/loop/train.py``), on one device or with context parallelism over
+processes, without pipeline parallelism or PEFT.
+
+Context parallelism (``ctx.cp_size > 1``): every rank builds the same
+model (parameters replicated, no FSDP — ROADMAP A3) and takes rank 0's
+parameters by one broadcast at build, so no two ranks can start apart; the
+optimizer states stay equal because the gradients are all-reduced. Every
+rank reads the same global batch and stages its sequence chunk; the step
+all-reduces its sums over the cp group, so the history is the same on
+every rank. The model must attend across ranks (the ring sdpa backend,
+``SdpaRingConfig``); MoE models under cp raise (their expert metrics and
+expert parallelism over the group are ROADMAP A3).
 
 ``__init__`` builds batch maths → model (through the provider, on the
 context's device) → optimizer → step. ``train()`` is a host loop around the
@@ -19,9 +29,13 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from d9d_tpu_torch.core.collectives import broadcast
 from d9d_tpu_torch.core.mesh import MeshContext
 from d9d_tpu_torch.loop.components.batch_maths import BatchMaths
-from d9d_tpu_torch.loop.components.batch_staging import stage_microbatches
+from d9d_tpu_torch.loop.components.batch_staging import (
+    check_cp_seq_len,
+    stage_microbatches,
+)
 from d9d_tpu_torch.loop.components.garbage_collector import (
     ManualGarbageCollector,
 )
@@ -35,6 +49,7 @@ from d9d_tpu_torch.loop.control.providers import (
 )
 from d9d_tpu_torch.loop.control.task import TrainTask
 from d9d_tpu_torch.loop.train_step import build_eval_step, build_train_step
+from d9d_tpu_torch.nn.moe import MoELayer
 from d9d_tpu_torch.tracker import NullTracker, Tracker
 
 logger = logging.getLogger("d9d_tpu_torch.trainer")
@@ -66,8 +81,25 @@ class Trainer:
         self.batch_maths = BatchMaths.from_context(
             ctx, config.global_batch_size, config.microbatch_size)
         self.stepper = Stepper(total_steps=config.total_steps)
+        check_cp_seq_len(config.seq_len, ctx.cp_size)
+        self._reduce_group = ctx.cp_group  # None on one device
 
         self.module = model_provider.build_module(ctx)
+        if self._reduce_group is not None:
+            if any(isinstance(m, MoELayer) for m in self.module.modules()):
+                raise NotImplementedError(
+                    "MoE models under context parallelism are not ported "
+                    "(expert parallelism and MoE metrics over the group: "
+                    "ROADMAP A3)")
+            sdpa = getattr(self.module, "sdpa", None)
+            if sdpa is not None and getattr(sdpa, "group", None) is None:
+                # a local backend would attend within each rank's chunk only
+                raise ValueError(
+                    "under cp_shard > 1 the model must attend through the "
+                    "ring backend: build_sdpa_backend(SdpaRingConfig(), "
+                    "ctx=ctx)")
+            with torch.no_grad():
+                broadcast(list(self.module.parameters()), self._reduce_group)
         self.optimizer = optimizer_provider.build(
             self.module.parameters(),
             learning_rate if learning_rate is not None else config.learning_rate,
@@ -78,6 +110,7 @@ class Trainer:
             optimizer=self.optimizer,
             num_microbatches=self.batch_maths.num_microbatches,
             max_grad_norm=config.max_grad_norm,
+            reduce_group=self._reduce_group,
         )
         self.dataset_provider = dataset_provider
         self.gc = ManualGarbageCollector(config.gc_every_steps)
@@ -89,12 +122,14 @@ class Trainer:
     # -- the step ------------------------------------------------------
 
     def _stage_batch(self, raw_batch: dict) -> list[dict]:
-        """prepare → microbatch split → device."""
+        """prepare → microbatch split (→ this rank's sequence chunk) →
+        device."""
         return stage_microbatches(
             self.task.prepare_batch(raw_batch),
             num_microbatches=self.batch_maths.num_microbatches,
             microbatch_size=self.batch_maths.microbatch_size,
-            device=self.device,
+            device=self.device, seq_len=self.config.seq_len,
+            cp_size=self.ctx.cp_size, cp_rank=self.ctx.cp_rank,
         )
 
     def run_step(self, raw_batch: dict) -> dict:
@@ -161,5 +196,6 @@ class Trainer:
         """Weighted loss of ``raw_batch`` under the current parameters,
         forward only."""
         if self._eval_fn is None:
-            self._eval_fn = build_eval_step(module=self.module, task=self.task)
+            self._eval_fn = build_eval_step(module=self.module, task=self.task,
+                                            reduce_group=self._reduce_group)
         return float(self._eval_fn(self._stage_batch(raw_batch)))

@@ -21,7 +21,13 @@ The contract is the JAX step's:
   ``.grad`` and is called as ``step()``;
 - the metrics ``loss``, ``grad_norm``, ``loss_weight`` and
   ``task/<k>`` (task statistics summed over microbatches), as device
-  scalars — nothing is read back here.
+  scalars — nothing is read back here;
+- under context parallelism (``reduce_group``, the cp group) each rank
+  runs the microbatch loop on its sequence chunk, then ONE sum all-reduce
+  over the group covers the fp32 gradients, ``loss_sum``, ``weight_sum``
+  and the task statistics — the JAX step's psum over the gradient-reduce
+  axes — before sum-then-scale; the clip and the update follow unchanged,
+  identically on every rank.
 
 The anomaly guard, ZeRO sharding, the split update and the numerics plane
 are not ported: asking for them raises ``NotImplementedError``.
@@ -32,6 +38,7 @@ from collections.abc import Callable
 import torch
 from torch import nn
 
+from d9d_tpu_torch.core.collectives import all_reduce_sum
 from d9d_tpu_torch.loop.control.task import TrainTask
 
 
@@ -52,10 +59,13 @@ def build_train_step(
     zero=None,
     split_update: bool = False,
     numerics: bool = False,
+    reduce_group=None,
 ) -> Callable[[list[dict]], dict[str, torch.Tensor]]:
     """Build the step over ``module``'s trainable parameters:
     ``step(microbatches) -> metrics``, taking the ``num_microbatches``
-    staged microbatches of one optimizer step."""
+    staged microbatches of one optimizer step. ``reduce_group``: the
+    process group the step's sums are all-reduced over (``None``: one
+    process)."""
     unported = {"anomaly_policy": anomaly_policy is not None,
                 "zero": zero is not None, "split_update": split_update,
                 "numerics": numerics}
@@ -110,6 +120,15 @@ def build_train_step(
                     g = torch.zeros_like(p, dtype=grad_dtype or p.dtype)
                 grads.append(g)
             del accs
+            if reduce_group is not None:
+                # copies: a task may hand back one tensor as both its weight
+                # and a statistic, and each must be summed once
+                keys = sorted(metrics_sum)
+                sums = [x.clone() for x in [loss_sum, weight_sum]
+                        + [metrics_sum[k] for k in keys]]
+                all_reduce_sum(grads + sums, reduce_group)
+                loss_sum, weight_sum = sums[:2]
+                metrics_sum = dict(zip(keys, sums[2:]))
             # sum-then-scale by the global weight
             inv_w = 1.0 / torch.clamp(weight_sum, min=1e-8)
             torch._foreach_mul_(grads, inv_w)
@@ -134,9 +153,10 @@ def build_train_step(
     return step
 
 
-def build_eval_step(*, module: nn.Module, task: TrainTask):
+def build_eval_step(*, module: nn.Module, task: TrainTask,
+                    reduce_group=None):
     """Forward-only: ``Σ loss_sum / max(Σ weight, 1e-8)`` over the
-    microbatches, as a device scalar."""
+    microbatches (and over ``reduce_group``'s ranks), as a device scalar."""
 
     @torch.no_grad()
     def step(microbatches: list[dict]) -> torch.Tensor:
@@ -145,6 +165,9 @@ def build_eval_step(*, module: nn.Module, task: TrainTask):
             loss, weight, _ = task.loss_fn(module, mb)
             loss_sum = loss_sum + loss.float()
             weight_sum = weight_sum + weight.float()
+        if reduce_group is not None:
+            loss_sum, weight_sum = loss_sum.clone(), weight_sum.clone()
+            all_reduce_sum([loss_sum, weight_sum], reduce_group)
         return loss_sum / torch.clamp(torch.as_tensor(weight_sum), min=1e-8)
 
     return step

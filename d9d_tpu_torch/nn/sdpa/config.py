@@ -30,9 +30,16 @@ class SdpaFlashConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SdpaRingConfig:
-    """Ring attention over a context-parallel axis — not ported yet."""
+    """Ring attention over the context-parallel mesh axis
+    (``ops/attention/ring.py``). Requires the model's sequence dim cut over
+    ``seq_axis`` (the batch stager does it, over ``cp_s`` only: any other
+    ``seq_axis`` raises) and the factory's ``ctx``. Batch and head axes
+    larger than 1 raise (ROADMAP A3)."""
 
     type: str = "ring"
+    seq_axis: str = "cp_s"
+    batch_axes: tuple[str, ...] = ("dp_r", "dp_s")
+    head_axes: tuple[str, ...] = ("tp",)
 
 
 SdpaBackendConfig = Union[SdpaEagerConfig, SdpaFlashConfig, SdpaRingConfig]

@@ -3,6 +3,8 @@
 ``None`` builds the flash backend — the serving default. No auto-detection
 of the platform and no environment override: the flash backend itself takes
 its CUDA kernel for CUDA tensors and its plain version for CPU tensors.
+The port has no ambient mesh: the ring backend is built over the
+``MeshContext`` passed as ``ctx``.
 """
 
 from d9d_tpu_torch.nn.sdpa.config import (
@@ -14,7 +16,8 @@ from d9d_tpu_torch.nn.sdpa.config import (
 from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
 
 
-def build_sdpa_backend(config: SdpaBackendConfig | None = None) -> SdpaBackend:
+def build_sdpa_backend(config: SdpaBackendConfig | None = None, *,
+                       ctx=None) -> SdpaBackend:
     if config is None:
         config = SdpaFlashConfig()
     if isinstance(config, SdpaEagerConfig):
@@ -26,7 +29,13 @@ def build_sdpa_backend(config: SdpaBackendConfig | None = None) -> SdpaBackend:
 
         return make_flash_sdpa(fused_bwd=config.fused_bwd)
     if isinstance(config, SdpaRingConfig):
-        raise NotImplementedError(
-            "the ring (context-parallel) SDPA backend is not ported yet"
-        )
+        from d9d_tpu_torch.ops.attention.ring import make_ring_sdpa
+
+        if ctx is None:
+            raise ValueError(
+                "the ring sdpa backend needs the mesh: "
+                "build_sdpa_backend(SdpaRingConfig(...), ctx=mesh_context)")
+        return make_ring_sdpa(
+            ctx, seq_axis=config.seq_axis, batch_axes=config.batch_axes,
+            head_axes=config.head_axes)
     raise TypeError(f"unknown sdpa config: {config!r}")

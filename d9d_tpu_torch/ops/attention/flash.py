@@ -6,9 +6,17 @@ Counterpart of ``d9d_tpu/ops/attention/pallas_flash.py``: the forward
 (``_fwd_kernel`` / ``_fwd_call``, the sink fold of ``_flash_fwd``), the
 backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, ``_bwd_fused_kernel`` /
 ``_bwd_call``, the delta and dsinks terms of ``_flash_bwd``), the
-``custom_vjp`` ``_flash`` and the ``make_pallas_flash_sdpa`` closure. The
-kernels themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` and
+``custom_vjp`` ``_flash`` and the ``make_pallas_flash_sdpa`` closure; and
+the block at global offsets that ring attention is built from
+(``flash_attention_block`` with ``_flash_ol``, the kernels'
+``has_positions`` mode, and ``combine_attention_chunks``). The kernels
+themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` and
 ``d9d_tpu_torch/csrc/flash_bwd.cu``.
+
+Global offsets: ``q_offset`` / ``k_offset`` place the query rows at
+positions ``q_offset + [0, T)`` and the keys at ``k_offset + [0, T)`` for
+the causal and window masks. They are host ints; the kernels take their
+difference by value.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises. The kernel wrappers refuse inputs that
@@ -17,6 +25,8 @@ hands the kernels detached tensors.
 """
 
 
+import operator
+
 import torch
 
 from d9d_tpu_torch.ops.attention.eager import eager_sdpa
@@ -24,6 +34,8 @@ from d9d_tpu_torch.ops.attention.eager import eager_sdpa
 NEG_BIG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (64, 128)
+# |q_offset - k_offset| the kernels' int arithmetic takes with room to spare
+MAX_SHIFT = 2 ** 30
 
 
 def _check_segments(q_segments, kv_segments):
@@ -31,11 +43,24 @@ def _check_segments(q_segments, kv_segments):
         raise ValueError("q_segments and kv_segments must be provided together")
 
 
-def _mask(t, s, dev, causal, window_size, q_segments, kv_segments):
+def _shift(q_offset, k_offset) -> int:
+    """``q_offset - k_offset`` as the int the kernels take by value (an
+    offset of ``None`` is 0)."""
+    shift = (operator.index(q_offset or 0)
+             - operator.index(k_offset or 0))
+    if abs(shift) >= MAX_SHIFT:
+        raise ValueError(f"q_offset - k_offset = {shift} is out of range "
+                         f"(|shift| < {MAX_SHIFT})")
+    return shift
+
+
+def _mask(t, s, dev, causal, window_size, q_segments, kv_segments,
+          q_offset=0, k_offset=0):
     """Visibility ``[B or 1, 1, 1, T, S]`` of the kernels: causal, window,
-    segment equality."""
-    q_pos = torch.arange(t, device=dev)[:, None]
-    k_pos = torch.arange(s, device=dev)[None, :]
+    segment equality, with the rows at ``q_offset + [0, T)`` and the keys at
+    ``k_offset + [0, S)``."""
+    q_pos = torch.arange(t, device=dev)[:, None] + q_offset
+    k_pos = torch.arange(s, device=dev)[None, :] + k_offset
     mask = torch.ones((t, s), dtype=torch.bool, device=dev)
     if causal:
         mask = mask & (k_pos <= q_pos)
@@ -58,6 +83,8 @@ def flash_attention_plain(
     window_size: int | None = None,
     q_segments: torch.Tensor | None = None,
     kv_segments: torch.Tensor | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward kernel, explicit fp32 math.
 
@@ -67,8 +94,10 @@ def flash_attention_plain(
     probabilities are gated by the mask, the denominator is clamped at
     ``1e-30`` — so a row that sees no key is exact zeros with
     ``lse = -1e30 + log(1e-30)``. No sinks here: see :func:`apply_sinks`.
+    ``q_offset`` / ``k_offset``: the rows' and keys' global positions.
     """
     _check_segments(q_segments, kv_segments)
+    _shift(q_offset, k_offset)
     b, t, hq, d = q.shape
     _, s, hkv, _ = k.shape
     if hq % hkv != 0:
@@ -81,7 +110,8 @@ def flash_attention_plain(
     qf = q.float().reshape(b, t, hkv, g, d)
     logits = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
 
-    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments)
+    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments,
+                 q_offset, k_offset)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_BIG))
 
     m = logits.amax(dim=-1, keepdim=True)
@@ -141,6 +171,8 @@ def flash_attention(
     window_size: int | None = None,
     q_segments: torch.Tensor | None = None,
     kv_segments: torch.Tensor | None = None,
+    q_offset: int | None = None,
+    k_offset: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward → ``(o [B,T,Hq,D], lse [B,Hq,T] fp32)``.
 
@@ -148,14 +180,20 @@ def flash_attention(
     current stream and raise on anything the kernel does not take; CPU
     tensors take :func:`flash_attention_plain`. The launch counter
     ``flash_attention.launches`` moves only where the kernel is launched.
+    Given offsets are the block mode (B4): the same kernel, with the shift
+    ``q_offset - k_offset`` passed by value; its launches are also counted
+    in ``flash_attention.block_launches``.
     """
     _check_segments(q_segments, kv_segments)
+    block = q_offset is not None or k_offset is not None
+    shift = _shift(q_offset, k_offset)
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return flash_attention_plain(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             window_size=window_size, q_segments=q_segments,
-            kv_segments=kv_segments,
+            kv_segments=kv_segments, q_offset=q_offset or 0,
+            k_offset=k_offset or 0,
         )
     if q.device.type != "cuda":
         raise RuntimeError(
@@ -201,15 +239,17 @@ def flash_attention(
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
             float(scale), int(bool(causal)),
-            -1 if window_size is None else int(window_size),
+            -1 if window_size is None else int(window_size), shift,
             stream,
         )
     kernel_lib.check_launch(code, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.block_launches += block
     return o, lse
 
 
 flash_attention.launches = 0     # kernel launches (CUDA path only)
+flash_attention.block_launches = 0  # of which in block mode (offsets given)
 flash_attention.plain_calls = 0  # plain-version calls (CPU tensors only)
 
 
@@ -241,6 +281,8 @@ def flash_attention_bwd_plain(
     window_size: int | None = None,
     q_segments: torch.Tensor | None = None,
     kv_segments: torch.Tensor | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the three backward kernels, explicit fp32
     math: ``(dq [B,T,Hq,D], dk, dv [B,T,Hkv,D])`` in the inputs' dtypes.
@@ -252,9 +294,15 @@ def flash_attention_bwd_plain(
     ``dk = ds^T.q``, ``dv = p^T.do`` summed over the query heads of each kv
     head. ``lse`` and ``delta`` are ``[B, Hq, T]`` fp32; ``delta`` is
     ``rowsum(do * o)`` (the caller's, as in the JAX package). The split
-    kernels and the fused one compute this one function.
+    kernels and the fused one compute this one function. With global
+    offsets the masks move with them; a row that sees no key of the block
+    still gets ``p = 1`` on every key here, while the kernels give it that
+    only on the key tiles they visit (none for a block wholly in the causal
+    future) — ring attention and any caller that combines blocks hand such a
+    row a zero cotangent, so neither reaches a gradient (ROADMAP C3).
     """
     _check_segments(q_segments, kv_segments)
+    _shift(q_offset, k_offset)
     b, t, hq, d = q.shape
     _, s, hkv, _ = k.shape
     if s != t:
@@ -265,7 +313,8 @@ def flash_attention_bwd_plain(
     dof = do.float().reshape(b, t, hkv, g, d)
     kf, vf = k.float(), v.float()
     logits = torch.einsum("bthgd,bshd->bhgts", qf, kf) * scale
-    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments)
+    mask = _mask(t, s, q.device, causal, window_size, q_segments, kv_segments,
+                 q_offset, k_offset)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_BIG))
     p = torch.exp(logits - lse.float().reshape(b, hkv, g, t, 1))
     dp = torch.einsum("bthgd,bshd->bhgts", dof, vf)
@@ -309,6 +358,8 @@ def flash_attention_bwd(
     q_segments: torch.Tensor | None = None,
     kv_segments: torch.Tensor | None = None,
     fused: bool = False,
+    q_offset: int | None = None,
+    k_offset: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward → ``(dq, dk, dv)`` (see
     :func:`flash_attention_bwd_plain` for the function).
@@ -321,15 +372,20 @@ def flash_attention_bwd(
     to the inputs' dtype. Anything the kernels do not take raises. CPU
     tensors take the plain version. Launch counters:
     ``flash_attention_bwd.dq_launches`` / ``dkv_launches`` /
-    ``fused_launches``; ``plain_calls`` counts the CPU path.
+    ``fused_launches``; ``plain_calls`` counts the CPU path. Given
+    offsets are the block mode (B4), as in :func:`flash_attention`; its
+    kernel launches are also counted in ``block_launches``.
     """
     _check_segments(q_segments, kv_segments)
+    block = q_offset is not None or k_offset is not None
+    shift = _shift(q_offset, k_offset)
     if q.device.type == "cpu":
         flash_attention_bwd.plain_calls += 1
         return flash_attention_bwd_plain(
             q, k, v, do, lse, delta, causal=causal,
             softmax_scale=softmax_scale, window_size=window_size,
             q_segments=q_segments, kv_segments=kv_segments,
+            q_offset=q_offset or 0, k_offset=k_offset or 0,
         )
     if q.device.type != "cuda":
         raise RuntimeError(
@@ -374,20 +430,22 @@ def flash_attention_bwd(
     else:
         dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     args = (q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code, float(scale),
-            causal, window_size)
+            causal, window_size, shift)
     if fused:
         _launch_bwd(2, *args)
         flash_attention_bwd.fused_launches += 1
+        flash_attention_bwd.block_launches += block
         return dq.to(q.dtype), dk, dv
     _launch_bwd(0, *args)
     flash_attention_bwd.dq_launches += 1
     _launch_bwd(1, *args)
     flash_attention_bwd.dkv_launches += 1
+    flash_attention_bwd.block_launches += 2 * block
     return dq, dk, dv
 
 
 def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
-                scale, causal, window_size) -> None:
+                scale, causal, window_size, shift=0) -> None:
     """One launch of ``d9d_flash_bwd`` (kernel 0 = dq, 1 = dk/dv, 2 =
     fused) on checked tensors; raises on a launch error. Counts nothing:
     :func:`flash_attention_bwd` counts its own launches."""
@@ -409,7 +467,7 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
             v.stride(0), v.stride(1), v.stride(2),
             do.stride(0), do.stride(1), do.stride(2),
             scale, int(bool(causal)),
-            -1 if window_size is None else int(window_size),
+            -1 if window_size is None else int(window_size), shift,
             stream,
         )
     kernel_lib.check_launch(err, "flash_attention_bwd")
@@ -418,6 +476,7 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
 flash_attention_bwd.dq_launches = 0     # kernel launches (CUDA path only)
 flash_attention_bwd.dkv_launches = 0
 flash_attention_bwd.fused_launches = 0
+flash_attention_bwd.block_launches = 0  # of which in block mode (offsets)
 flash_attention_bwd.plain_calls = 0     # plain-version calls (CPU tensors)
 
 
@@ -458,8 +517,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse, sinks, q_seg, kv_seg = ctx.saved_tensors
         do = do.detach().contiguous()
         # delta = rowsum(dO * O) per (b, h, t), O as the forward saved it
-        delta = torch.einsum(
-            "bthd,bthd->bht", do.float(), o.float()).contiguous()
+        delta = block_delta(do, o, None)
         dq, dk, dv = flash_attention_bwd(
             q.detach(), k.detach(), v.detach(), do, lse, delta,
             q_segments=q_seg, kv_segments=kv_seg, **ctx.kw,
@@ -468,6 +526,106 @@ class FlashAttentionFunction(torch.autograd.Function):
         if sinks is not None and ctx.needs_input_grad[3]:
             dsinks = sink_grad(sinks.detach(), lse, delta)
         return dq, dk, dv, dsinks, None, None, None, None, None, None
+
+
+def block_delta(do: torch.Tensor, o: torch.Tensor,
+                dlse: torch.Tensor | None) -> torch.Tensor:
+    """The backward kernels' per-row term for a block differentiable in both
+    outputs: ``rowsum(do * o) - dlse`` (``_flash_ol_bwd``; ``∂lse/∂s = p``,
+    so an lse cotangent folds into the same term), ``[B, Hq, T]`` fp32."""
+    delta = torch.einsum("bthd,bthd->bht", do.float(), o.float())
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+class FlashBlockFunction(torch.autograd.Function):
+    """One flash block at global offsets, differentiable in both ``o`` and
+    ``lse`` (counterpart of the ``custom_vjp`` ``_flash_ol``): the forward
+    kernel in block mode, saving ``(q, k, v, o, lse)``; the backward forms
+    :func:`block_delta` and runs the backward kernels at the same offsets."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segments, kv_segments, q_offset, k_offset,
+                causal, softmax_scale, window_size, fused_bwd):
+        kw = dict(causal=causal, softmax_scale=softmax_scale,
+                  window_size=window_size, q_offset=q_offset,
+                  k_offset=k_offset)
+        o, lse = flash_attention(q.detach(), k.detach(), v.detach(),
+                                 q_segments=q_segments,
+                                 kv_segments=kv_segments, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, q_segments, kv_segments)
+        ctx.kw = dict(kw, fused=fused_bwd)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+        # o and lse were saved as outputs of the graph: detach for the kernels
+        o, lse = o.detach(), lse.detach()
+        do = do.detach().to(o.dtype).contiguous()
+        dq, dk, dv = flash_attention_bwd(
+            q.detach(), k.detach(), v.detach(), do, lse,
+            block_delta(do, o, dlse), q_segments=q_seg, kv_segments=kv_seg,
+            **ctx.kw,
+        )
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+def flash_attention_block(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_offset: int,
+    k_offset: int,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+    window_size: int | None = None,
+    q_segments: torch.Tensor | None = None,
+    kv_segments: torch.Tensor | None = None,
+    fused_bwd: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One flash-attention block at global offsets → ``(o, lse)`` (B4).
+
+    ``q [B,T,Hq,D]`` attends ``k/v [B,T,Hkv,D]`` as if the rows sat at
+    ``q_offset + [0,T)`` and the keys at ``k_offset + [0,T)``; both outputs
+    are differentiable. A row that sees no key of the block comes back as
+    ``o = 0, lse ≈ -1e30`` (the JAX block gives the mean of the visited
+    ``v`` there, ROADMAP C3); :func:`combine_attention_chunks` weighs it
+    to exactly 0. Unlike the JAX block, ``k``/``v`` must have the query
+    chunk's length (ring chunks do): ``T != S`` raises.
+    """
+    _check_segments(q_segments, kv_segments)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(
+            f"flash_attention_block: the kernels take equal q/kv block "
+            f"lengths, got {q.shape[1]}/{k.shape[1]}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        return FlashBlockFunction.apply(
+            q, k, v, q_segments, kv_segments, q_offset, k_offset, causal,
+            softmax_scale, window_size, fused_bwd)
+    # no gradient wanted (or grad mode off): the kernel on detached inputs
+    return flash_attention(
+        q.detach(), k.detach(), v.detach(), causal=causal,
+        softmax_scale=softmax_scale, window_size=window_size,
+        q_segments=q_segments, kv_segments=kv_segments, q_offset=q_offset,
+        k_offset=k_offset)
+
+
+def combine_attention_chunks(
+    o: torch.Tensor, lse: torch.Tensor, o_new: torch.Tensor,
+    lse_new: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two normalized partial results ``(o [B,T,H,D], lse [B,H,T])``
+    over disjoint key sets: ``lse = logaddexp(lse, lse_new)``, ``o = exp(lse
+    - merged)·o + exp(lse_new - merged)·o_new`` in fp32 (the JAX function of
+    the same name). Plain differentiable PyTorch."""
+    merged = torch.logaddexp(lse, lse_new)
+    w0 = torch.exp(lse - merged).transpose(1, 2)[..., None]
+    w1 = torch.exp(lse_new - merged).transpose(1, 2)[..., None]
+    return o.float() * w0 + o_new.float() * w1, merged
 
 
 def make_flash_sdpa(fused_bwd: bool = False):
@@ -532,6 +690,9 @@ def make_flash_sdpa(fused_bwd: bool = False):
 
 __all__ = [
     "FlashAttentionFunction",
+    "FlashBlockFunction",
+    "combine_attention_chunks",
+    "flash_attention_block",
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_bwd",

@@ -47,6 +47,7 @@ _SIGNATURES = {
         _L, _L, _L,                  # v strides (batch, token, head)
         _L, _L, _L,                  # o strides (batch, token, head)
         _F, _I, _I,                  # scale, causal, window (-1 = none)
+        _I,                          # shift = q_offset - k_offset
         _P,                          # stream
     ],
     "d9d_flash_bwd": [
@@ -59,6 +60,7 @@ _SIGNATURES = {
         _L, _L, _L,                  # v strides
         _L, _L, _L,                  # do strides
         _F, _I, _I,                  # scale, causal, window (-1 = none)
+        _I,                          # shift = q_offset - k_offset
         _P,                          # stream
     ],
     "d9d_flash_decode": [

@@ -88,6 +88,9 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/nn/decode_flags.py",
         "d9d_tpu_torch/ops/stochastic.py",
         "d9d_tpu_torch/optim/stochastic_adamw.py",
+        "d9d_tpu_torch/ops/attention/ring.py",
+        "d9d_tpu_torch/core/distributed.py",
+        "d9d_tpu_torch/core/collectives.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {

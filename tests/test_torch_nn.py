@@ -24,6 +24,7 @@ from d9d_tpu.nn.decode_flags import in_continuation_chunk as jax_in_continuation
 from d9d_tpu.nn.decoder import DecoderLayer as JaxLayer
 from d9d_tpu.ops import compute_rope_frequencies, make_rope_cos_sin
 from d9d_tpu.ops.attention.eager import eager_sdpa as jax_eager
+from d9d_tpu_torch.core import MeshParameters
 from d9d_tpu_torch.model_state import load_jax_params
 from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
 from d9d_tpu_torch.nn import (
@@ -377,8 +378,13 @@ def test_load_jax_params_rejects_leftover_missing_and_misshapen():
 def test_sdpa_factory_and_device_default():
     assert build_sdpa_backend(SdpaEagerConfig()).__name__ == "eager_sdpa"
     assert hasattr(build_sdpa_backend(), "eager_calls")
+    # the ring backend (a ring of one rank here) refuses an explicit mask,
+    # as the JAX one does
+    ring = build_sdpa_backend(SdpaRingConfig(),
+                              ctx=MeshParameters().build(["cpu"]))
+    q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(NotImplementedError, match="ring"):
-        build_sdpa_backend(SdpaRingConfig())
+        ring(q, q, q, mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
     if not torch.cuda.is_available():
         # device=None means the card, and raises where there is none
         with pytest.raises(RuntimeError, match="no CUDA device"):
