@@ -17,7 +17,7 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the flash forward and decode kernels, the paged decode kernel (bf16,
    fp32 and int8 pools, shuffled and shared page tables, pages of 4, 8 and
    16, with a lost-page negative control), the three flash backward kernels
-   (dq, dk/dv, fused) and the three MoE expert-FFN kernels (aligned, gather,
+   (dq, dk/dv — bf16 on the tensor cores — and fused) and the three MoE expert-FFN kernels (aligned, gather,
    gather+combine), the last two families with negative controls for their
    bf16 rules; the flash kernels also at Qwen3-30B-A3B's GQA group (g = 8);
    the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
@@ -240,7 +240,9 @@ def check_flash_fwd(gen):
         return (torch.arange(t, device="cuda")[None, :] >= pad).to(torch.int32)
 
     for dtype in (torch.bfloat16, torch.float32):
-        compare("causal", dtype, 2, 2048)
+        qkv = compare("causal", dtype, 2, 2048)
+        if dtype == torch.bfloat16:
+            main_qkv = qkv
         # Qwen3-30B-A3B's GQA group: 32 query heads over 4 kv heads (g = 8)
         compare("causal_g8", dtype, 2, 2048, hkv=4)
         s = segs(2, 2048, [0, 700])
@@ -276,6 +278,15 @@ def check_flash_fwd(gen):
         raise AssertionError(f"flash_fwd vs library call: {lib_err}")
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    # the training paths' shape (bf16, B=2, T=2048, causal): one library call
+    # with the causal flag, kv heads repeated
+    qm, km, vm = main_qkv
+    qmh = qm.transpose(1, 2)
+    kmh = km.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    vmh = vm.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    library_ms_main = time_ms(lambda: F.scaled_dot_product_attention(
+        qmh, kmh, vmh, is_causal=True), iters=10)
+    del qm, km, vm, qmh, kmh, vmh, main_qkv, qkv
 
     # least time: visible (query, key) pairs of this mask, 4*D flops each
     pairs = sum(p * (p + 1) // 2 + (t - p) * (t - p + 1) // 2 for p in pads)
@@ -298,6 +309,10 @@ def check_flash_fwd(gen):
         "timed_shape": {"B": 4, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
                         "dtype": "bfloat16", "segments": True},
         "bound_from": {"flops": flops, "bytes": nbytes},
+        "library_ms_causal_b2_t2048": library_ms_main,
+        "library_ms_causal_b2_t2048_is": "scaled_dot_product_attention, "
+                                         "is_causal, kv heads repeated; the "
+                                         "kernel's ms is case causal, bf16",
     }
 
 
@@ -585,33 +600,60 @@ def check_flash_decode_paged(gen):
 
 
 # Tolerances of the backward kernels vs their plain version, same inputs.
-# Same rule as above, other constants. The backward kernels multiply in
-# exact fp32 (bf16 inputs are widened, not rounded further) and accumulate
-# in fp32 as the plain version does, so the two differ in the order of sums
-# only — and the fused dq in the order its atomic adds land — and then each
-# rounds its fp32 result to the output dtype once. In bf16 two fp32 values
-# that close may still round to neighbouring bf16 values: one bf16 step,
-# 2^-7 of the element. The order of sums costs far less than 2^-12 of the
-# row's size. A lost 64-key tile (dq) or a lost 64-row tile of one query
-# head (dk, dv) costs a few percent of the row: the negative controls below
-# emulate both with the plain version and must break the rule.
-BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-6}
-BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
-BWD_ROW_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -12}
+# Same rule as above, other constants. The plain version multiplies the
+# inputs in exact fp32, sums in fp32 and rounds each result to the output
+# dtype once; every kernel sums its products in fp32 too.
+# fp32 (all three kernels) and the fused kernel in bf16 multiply in exact
+# fp32 on the CUDA cores (bf16 inputs are widened, not rounded further), so
+# kernel and plain version differ in the order of sums only — and the fused
+# dq in the order its atomic adds land. In bf16 two fp32 values that close
+# may still round to neighbouring bf16 values: one bf16 step, 2^-7 of the
+# element (RTOL). The order of sums costs far less than 2^-12 of the row's
+# size (BWD_RULE["fused"]).
+# bf16 dq and dk/dv (the tensor-core kernels) round p and ds to bf16 before
+# the second products (dv = p^T.do, dk = ds^T.q, dq = ds.k), as the forward
+# rounds p before p.v (ROW_RTOL above): each term of those sums is off by up
+# to 2^-9 of itself, with signs that do not line up, so the sum is off by
+# about 2^-9 of the root of the sum of squared terms. That size is the row's
+# and not the element's, and for dq and dk it is not even the result's: the
+# terms of ds cancel (sum_k p (dp - delta) = 0 in each row), so a gradient
+# element near 0 carries the error of terms of the row's size. Hence a row
+# term, 2^-7 of the row's largest element: 4 units of one rounding. The
+# designed arithmetic, emulated in plain PyTorch against the plain version
+# (tests/test_torch_flash_bwd_mma.py: causal, window, segments, shifts,
+# g = 2 and 8), uses at most about half of it; a lost 64-key tile (dq) or a
+# lost 64-row tile of one query head (dk, dv) costs a few percent of the
+# row and breaks it many times over — the negative controls below emulate
+# both with the plain version and must break the rule of the split kernels.
+# These kernels also sum dp = do.v in another order than the plain version
+# (the tensor cores' k-steps), and where a row's gradient cancels to 0 only
+# that fp32 rounding is left: the first row under causal masking sees one
+# key, where dp = delta exactly. Each side's dp - delta is then off by about
+# 2^-24 of sum_d |do_d v_d| (~81 for standard-normal inputs at D = 128),
+# times scale (0.088) and |k| (up to ~4): ~1.7e-6, and ~3.4e-6 between two
+# orders of summation. The absolute term is twice that, 2^-17 (7.6e-6).
+BWD_RULE = {  # (atol, rtol, row_rtol)
+    "split": {torch.float32: (1e-4, 1e-4, 0.0),
+              torch.bfloat16: (2.0 ** -17, 2.0 ** -7, 2.0 ** -7)},
+    "fused": {torch.float32: (1e-4, 1e-4, 0.0),
+              torch.bfloat16: (1e-6, 2.0 ** -7, 2.0 ** -12)},
+}
 BWD_TOLERANCE = {
-    "bf16": [BWD_ATOL[torch.bfloat16], BWD_RTOL[torch.bfloat16],
-             BWD_ROW_RTOL[torch.bfloat16]],
-    "fp32": [BWD_ATOL[torch.float32], BWD_RTOL[torch.float32],
-             BWD_ROW_RTOL[torch.float32]],
+    "bf16": list(BWD_RULE["split"][torch.bfloat16]),
+    "bf16_fused": list(BWD_RULE["fused"][torch.bfloat16]),
+    "fp32": list(BWD_RULE["split"][torch.float32]),
     "rule": TOLERANCE["rule"],
 }
 H100_FP32_FLOPS = 67e12  # CUDA-core fp32 peak (exact fp32 products)
 
 
-def bwd_tolerance_use(got, want, dtype):
+def bwd_tolerance_use(got, want, dtype, fused=False):
+    """tolerance_use under the backward rule of the split kernels (dq,
+    dk/dv) or, with fused=True, of the fused kernel."""
     want = want.float()
-    allowed = (BWD_ATOL[dtype] + BWD_RTOL[dtype] * want.abs()
-               + BWD_ROW_RTOL[dtype] * want.abs().amax(dim=-1, keepdim=True))
+    atol, rtol, row = BWD_RULE["fused" if fused else "split"][dtype]
+    allowed = (atol + rtol * want.abs()
+               + row * want.abs().amax(dim=-1, keepdim=True))
     return float(((got.float() - want).abs() / allowed).max())
 
 
@@ -721,9 +763,33 @@ def _lost_tile_controls(q, k, v, do, o, lse, delta, want, dtype):
                 bwd_tolerance_use(dv_l, want[2], dtype)}
 
 
-def check_flash_bwd(gen):
+def _sdpa_bwd_library_ms(q, k, v, do, want_dq):
+    """The library yardstick of the backward: one scaled_dot_product_attention
+    call at the same shape, causal, kv heads repeated beforehand; timed as
+    (forward + backward) - forward, 10 calls each. Returns (ms, max abs diff
+    of its dq from the plain version's)."""
     import torch.nn.functional as F
 
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
+    doh = do.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def lib_fwd_bwd():
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).backward(doh)
+
+    lib_fwd_bwd()
+    torch.cuda.synchronize()
+    err = max_err(qh.grad.transpose(1, 2), want_dq)
+    return time_ms(lib_fwd_bwd, iters=10) - time_ms(lib_fwd, iters=10), err
+
+
+def check_flash_bwd(gen):
     from d9d_tpu_torch.ops.attention.flash import (
         flash_attention_bwd,
         flash_attention_bwd_plain,
@@ -752,7 +818,9 @@ def check_flash_bwd(gen):
                                  ("flash_bwd_dkv", split, (1, 2)),
                                  ("flash_bwd_fused", fused, (0, 1, 2))):
             errs = [max_err(got[i], want[i]) for i in which]
-            uses = [bwd_tolerance_use(got[i], want[i], dtype) for i in which]
+            uses = [bwd_tolerance_use(got[i], want[i], dtype,
+                                      fused=name == "flash_bwd_fused")
+                    for i in which]
             finite = all(bool(torch.isfinite(got[i].float()).all())
                          for i in which)
             if not finite or max(uses) > 1.0:
@@ -766,7 +834,8 @@ def check_flash_bwd(gen):
         ms = _time_bwd_kernels(q, k, v, do, lse, delta, kw)
         for name in work:
             row[name].update(ms=ms[name], bound_ms=work[name]["bound_ms"],
-                             bound_by=work[name]["bound_by"])
+                             bound_by=work[name]["bound_by"],
+                             tflop_s=work[name]["flops"] / ms[name] / 1e9)
         row["visible_pairs"] = pairs
         cases.append(row)
         return (q, k, v, do, o, lse, delta), want, work, ms
@@ -774,7 +843,9 @@ def check_flash_bwd(gen):
     for dtype in (torch.bfloat16, torch.float32):
         compare("causal", dtype, 2, 2048)
         # Qwen3-30B-A3B's GQA group: 32 query heads over 4 kv heads (g = 8)
-        compare("causal_g8", dtype, 2, 2048, hkv_=4)
+        g8 = compare("causal_g8", dtype, 2, 2048, hkv_=4)
+        if dtype == torch.bfloat16:
+            g8_bf16 = g8
         compare("window512", dtype, 2, 2048, window_size=512)
         s = segs(2, 2048, [0, 700])
         compare("segments_padding", dtype, 2, 2048, q_segments=s, kv_segments=s)
@@ -784,7 +855,7 @@ def check_flash_bwd(gen):
         # those rows see no key (forward zeros, lse = -1e30) and the
         # ungated backward gives them p = 1 on every key, as the TPU
         # kernels do; without causal or window every kernel visits every
-        # key, so all three agree with the plain version exactly there
+        # key, so all three see there the keys the plain version sees
         ks = torch.zeros((2, 512), dtype=torch.int32, device="cuda")
         qs = ks.clone()
         qs[:, [5, 300, 511]] = 9
@@ -806,27 +877,10 @@ def check_flash_bwd(gen):
     fused_wrapper_ms = time_ms(
         lambda: flash_attention_bwd(q, k, v, do, lse, delta, fused=True),
         iters=5, warmup=1)
-    # library yardstick: the backward of one scaled_dot_product_attention
-    # call at the same shape, causal, kv heads repeated beforehand; timed as
-    # (forward + backward) - forward, 10 calls each
-    g = hq // hkv
-    qh = q.transpose(1, 2).detach().requires_grad_()
-    kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
-    vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
-    doh = do.transpose(1, 2)
-
-    def lib_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-
-    def lib_fwd_bwd():
-        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).backward(doh)
-
-    lib_fwd_bwd()
-    torch.cuda.synchronize()
-    lib_dq = qh.grad.transpose(1, 2)
-    lib_err = max_err(lib_dq, want[0])
-    library_ms = time_ms(lib_fwd_bwd, iters=10) - time_ms(lib_fwd, iters=10)
+    library_ms, lib_err = _sdpa_bwd_library_ms(q, k, v, do, want[0])
+    (q8, k8, v8, do8, *_), want8, _, _ = g8_bf16
+    library_ms_g8, _ = _sdpa_bwd_library_ms(q8, k8, v8, do8, want8[0])
+    del q8, k8, v8, do8, want8, g8, g8_bf16
     kernels = []
     for name, src_line in (("flash_bwd_dq", 583), ("flash_bwd_dkv", 602),
                            ("flash_bwd_fused", 548)):
@@ -841,10 +895,13 @@ def check_flash_bwd(gen):
             "bound_ms": work[name]["bound_ms"],
             "bound_by": work[name]["bound_by"],
             "library_ms": library_ms,
+            "tflop_s": work[name]["flops"] / ms[name] / 1e9,
         })
     return kernels, {
         "cases": cases, "tolerance": BWD_TOLERANCE,
         "negative_controls": controls,
+        "negative_controls_rule": "bf16, dq and dk/dv (BWD_RULE['split'])",
+        "library_ms_g8": library_ms_g8,
         "timed_shape": {"B": 2, "T": 2048, "Hq": hq, "Hkv": hkv, "D": d,
                         "dtype": "bfloat16", "causal": True},
         "split_wrapper_ms": split_ms, "fused_wrapper_ms": fused_wrapper_ms,
@@ -947,6 +1004,29 @@ def _efficient_attention(q, k, v, causal):
         qh, kh, vh, None, True, 0.0, causal, scale=q.shape[-1] ** -0.5)
 
 
+def _efficient_attention_bwd_ms(q, k, v, do, causal):
+    """The library yardstick of a block's backward: the same call with
+    autograd, timed as (forward + backward) - forward."""
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1).detach().requires_grad_()
+    doh = do.transpose(1, 2)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, None, True, 0.0, causal, scale=q.shape[-1] ** -0.5)
+
+    def fwd():
+        with torch.no_grad():
+            call()
+
+    def fwd_bwd():
+        call()[0].backward(doh)
+
+    return time_ms(fwd_bwd, iters=3, warmup=1) - time_ms(fwd, iters=3, warmup=1)
+
+
 # the blocks one library call computes: no offsets, so only a causal block on
 # the diagonal and a block every query sees whole
 BLOCK_LIBRARY_CASES = {"diagonal": True, "past": False,
@@ -1026,7 +1106,7 @@ def check_flash_block(gen):
                             f"flash_block {tag} {dtype} {name} {label} "
                             f"not finite")
                     uses[f"{name}_{label}"] = bwd_tolerance_use(
-                        got[i], want[i], dtype)
+                        got[i], want[i], dtype, fused=name == "fused")
                     worst[dtype] = max(worst[dtype], max_err(got[i], want[i]))
             if max(uses.values()) > 1.0:
                 raise AssertionError(
@@ -1113,6 +1193,7 @@ def check_flash_block(gen):
     lib = _efficient_attention(q, k, v, False)
     lib_err = max_err(lib()[0].transpose(1, 2), o)
     library_ms = time_ms(lib, iters=5, warmup=1)
+    library_bwd_ms = _efficient_attention_bwd_ms(q, k, v, do, False)
     del q, k, v, o, lse, do, dlse, delta, lib
     torch.cuda.empty_cache()
     by_ops = bound["fwd"] / 1e3
@@ -1131,6 +1212,7 @@ def check_flash_block(gen):
         "library_ms": library_ms,
         "bwd_split_ms": bwd_ms["dq"] + bwd_ms["dkv"],
         "bwd_bound_ms": bound["dq"] + bound["dkv"],
+        "bwd_library_ms": library_bwd_ms,
     }, {
         "cases": cases, "tolerance": TOLERANCE,
         "bwd_tolerance": BWD_TOLERANCE,
@@ -1147,6 +1229,8 @@ def check_flash_block(gen):
                          "null in a case where no single call takes the "
                          "block's offsets (future, window, segments)",
         "library_max_abs_diff": lib_err,
+        "bwd_library_ms_is": "the same call with autograd, forward+backward "
+                             "minus forward, the same non-causal block",
     }
 
 

@@ -22,13 +22,18 @@
 // recomputed by both) over a few megabytes of inputs, far above the ~295
 // flop/byte ridge of the H100.
 //
-// Design. Every product runs on the CUDA cores as fp32 FMAs over tiles
-// widened to fp32 in shared memory, for both input types: float32 inputs
-// keep exact fp32 products (the exactness link of the parity chain), and
-// bfloat16 inputs are widened exactly, so kernel and plain version differ
-// only in the order of sums. The TPU grid's sequential dimension and its
-// VMEM accumulators become a loop inside the block with fp32 accumulators
-// in registers:
+// Design. Two families of kernels share the parameters, the masks, the
+// ranges and the tiles below. bfloat16 dq and dk/dv (kernels 0 and 1) run
+// on the tensor cores: flash_bwd_mma.cuh, mma.sync on bf16 tiles fed by
+// cp.async, p and ds rounded to bf16 as the A operands of the second
+// products. float32 inputs (all three kernels) and the fused kernel (both
+// dtypes) run every product on the CUDA cores as fp32 FMAs over tiles
+// widened to fp32 in shared memory: float32 inputs keep exact fp32 products
+// (the exactness link of the parity chain), and bfloat16 inputs of the fused
+// kernel are widened exactly, so it differs from the plain version only in
+// the order of sums. The TPU grid's sequential dimension and its VMEM
+// accumulators become a loop inside the block with fp32 accumulators in
+// registers:
 //
 // - dq: one block per (batch row, kv head, tile of 64 query rows of the GQA
 //   group, r = ig*T + i as in the forward kernel); it loops over the key
@@ -55,8 +60,9 @@
 // range does not run at all, so at shift 0 the kernels visit exactly the
 // tiles they visited before.
 //
-// Tensor cores (mma / wgmma), TMA and asynchronous tile loads are left to
-// later work; the kernels are synchronous: a tile is loaded, then used.
+// The CUDA-core kernels are synchronous (a tile is loaded, then used) and
+// hold one block per SM; the tensor-core kernels double-buffer their tiles
+// and hold two (see flash_bwd_mma.cuh). wgmma and TMA are left to later work.
 #include "attn_tile.cuh"
 
 namespace d9d {
@@ -476,27 +482,43 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const BwdParams& p, int kernel, cudaStream_t stream) {
-  cudaError_t err;
-  if (kernel == 0) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    auto fn = bwd_dq_kernel<T, D>;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.g * p.T + BWD_RQ - 1) / BWD_RQ, p.B * p.Hkv);
-    fn<<<grid, BWD_NT, smem, stream>>>(p);
-    return cudaGetLastError();
-  }
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto fn = kernel == 2 ? bwd_dkv_kernel<T, D, true> : bwd_dkv_kernel<T, D, false>;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+}  // namespace
+}  // namespace d9d
+
+// kernels 0 and 1 for bfloat16 (tensor cores); they use BwdParams, visible()
+// and the tile constants above
+#include "flash_bwd_mma.cuh"
+
+namespace d9d {
+namespace {
+
+template <typename Kernel>
+cudaError_t launch_cuda_cores(Kernel fn, size_t smem, int rows,
+                              const BwdParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + BWD_BK - 1) / BWD_BK, p.B * p.Hkv);
+  const dim3 grid((rows + BWD_RQ - 1) / BWD_RQ, p.B * p.Hkv);
   fn<<<grid, BWD_NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// bf16 dq and dk/dv take the tensor-core kernels, everything else the
+// CUDA-core ones; the dtype alone decides (no other path exists for them)
+template <typename T, int D>
+cudaError_t launch_bwd(const BwdParams& p, int kernel, cudaStream_t stream) {
+  if (kernel == 2)
+    return launch_cuda_cores(bwd_dkv_kernel<T, D, true>, dkv_smem_bytes<D>(),
+                             p.T, p, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_bwd_mma<D>(p, kernel, stream);
+  } else {
+    if (kernel == 0)
+      return launch_cuda_cores(bwd_dq_kernel<T, D>, dq_smem_bytes<D>(),
+                               p.g * p.T, p, stream);
+    return launch_cuda_cores(bwd_dkv_kernel<T, D, false>, dkv_smem_bytes<D>(),
+                             p.T, p, stream);
+  }
 }
 
 template <typename T>

@@ -11,7 +11,8 @@ the block at global offsets that ring attention is built from
 (``flash_attention_block`` with ``_flash_ol``, the kernels'
 ``has_positions`` mode, and ``combine_attention_chunks``). The kernels
 themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` and
-``d9d_tpu_torch/csrc/flash_bwd.cu``.
+``d9d_tpu_torch/csrc/flash_bwd.cu`` (whose bf16 dq and dk/dv kernels run on
+the tensor cores, ``flash_bwd_mma.cuh``).
 
 Global offsets: ``q_offset`` / ``k_offset`` place the query rows at
 positions ``q_offset + [0, T)`` and the keys at ``k_offset + [0, T)`` for
@@ -365,11 +366,12 @@ def flash_attention_bwd(
     :func:`flash_attention_bwd_plain` for the function).
 
     CUDA tensors launch ``d9d_flash_bwd`` (``csrc/flash_bwd.cu``) on the
-    current stream: the dq kernel then the dk/dv kernel, or with
-    ``fused=True`` the one-pass kernel, which adds dq into a zeroed fp32
-    buffer by ``atomicAdd`` (the order of those sums is not fixed, so the
-    fused dq may differ between runs in its last bits) followed by one cast
-    to the inputs' dtype. Anything the kernels do not take raises. CPU
+    current stream: the dq kernel then the dk/dv kernel (for bf16 on the
+    tensor cores, with p and ds rounded to bf16 before the second
+    products), or with ``fused=True`` the one-pass kernel, which adds dq
+    into a zeroed fp32 buffer by ``atomicAdd`` (the order of those sums is
+    not fixed, so the fused dq may differ between runs in its last bits)
+    followed by one cast to the inputs' dtype. Anything the kernels do not take raises. CPU
     tensors take the plain version. Launch counters:
     ``flash_attention_bwd.dq_launches`` / ``dkv_launches`` /
     ``fused_launches``; ``plain_calls`` counts the CPU path. Given
