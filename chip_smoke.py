@@ -17,9 +17,13 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the flash forward and decode kernels, the paged decode kernel (bf16,
    fp32 and int8 pools, shuffled and shared page tables, pages of 4, 8 and
    16, with a lost-page negative control), the three flash backward kernels
-   (dq, dk/dv — bf16 on the tensor cores — and fused) and the three MoE expert-FFN kernels (aligned, gather,
-   gather+combine), the last two families with negative controls for their
-   bf16 rules; the flash kernels also at Qwen3-30B-A3B's GQA group (g = 8);
+   (dq, dk/dv and fused — bf16 on the tensor cores; every fused case run
+   twice and required equal bit for bit, its dq being summed in a fixed
+   order) and the three MoE expert-FFN kernels (aligned, gather,
+   gather+combine — the last read for its run-to-run spread), the last two
+   families with negative controls for their bf16 rules; the flash kernels
+   also at Qwen3-30B-A3B's GQA group (g = 8) and the forward at the
+   training shape (B=2, T=2048, causal) beside its bound and library call;
    the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
    and 151936 x 4096 elements (±0, denormals, ±inf, NaNs, the largest
    finite values), with its rule checked at 2^24 draws per fraction and a
@@ -250,6 +254,7 @@ def check_flash_fwd(gen):
         compare("window", dtype, 2, 2048, window_size=512)
         compare("sinks", dtype, 2, 2048,
                 sinks=torch.randn(hq, device="cuda", generator=gen))
+        compare("t1000", dtype, 2, 1000)  # T not a multiple of any tile
     # the shape generate's first prefill chunk gives the kernel: batch 4,
     # chunk 512, left-padded rows as segments
     pads = [0, 324, 124, 511]
@@ -281,11 +286,20 @@ def check_flash_fwd(gen):
     # the training paths' shape (bf16, B=2, T=2048, causal): one library call
     # with the causal flag, kv heads repeated
     qm, km, vm = main_qkv
+    ms_main = time_ms(lambda: flash_attention(qm, km, vm), iters=20)
     qmh = qm.transpose(1, 2)
     kmh = km.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
     vmh = vm.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
     library_ms_main = time_ms(lambda: F.scaled_dot_product_attention(
-        qmh, kmh, vmh, is_causal=True), iters=10)
+        qmh, kmh, vmh, is_causal=True), iters=20)
+    # its least time: visible (row, key) pairs, 2 products of 2*D flops
+    t_main = qm.shape[1]
+    pairs_main = qm.shape[0] * hq * t_main * (t_main + 1) // 2
+    flops_main = 4.0 * d * pairs_main
+    bytes_main = (2 * qm.numel() + km.numel() + vm.numel()) * 2 \
+        + qm.shape[0] * hq * t_main * 4
+    bound_main = 1e3 * max(flops_main / H100_BF16_FLOPS,
+                           bytes_main / H100_BYTES_PER_S)
     del qm, km, vm, qmh, kmh, vmh, main_qkv, qkv
 
     # least time: visible (query, key) pairs of this mask, 4*D flops each
@@ -304,10 +318,18 @@ def check_flash_fwd(gen):
         "bound_ms": 1e3 * max(by_ops, by_bytes),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": library_ms, "library_max_abs_diff": lib_err,
+        "ms_training_shape": ms_main,
+        "bound_ms_training_shape": bound_main,
+        "library_ms_training_shape": library_ms_main,
+        "tflop_s_training_shape": flops_main / ms_main / 1e9,
     }, {
         "cases": cases, "tolerance": TOLERANCE,
         "timed_shape": {"B": 4, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
                         "dtype": "bfloat16", "segments": True},
+        "training_shape": {"B": 2, "T": 2048, "Hq": hq, "Hkv": hkv, "D": d,
+                           "dtype": "bfloat16", "causal": True,
+                           "visible_pairs": pairs_main, "flops": flops_main,
+                           "bytes": bytes_main},
         "bound_from": {"flops": flops, "bytes": nbytes},
         "library_ms_causal_b2_t2048": library_ms_main,
         "library_ms_causal_b2_t2048_is": "scaled_dot_product_attention, "
@@ -603,13 +625,20 @@ def check_flash_decode_paged(gen):
 # Same rule as above, other constants. The plain version multiplies the
 # inputs in exact fp32, sums in fp32 and rounds each result to the output
 # dtype once; every kernel sums its products in fp32 too.
-# fp32 (all three kernels) and the fused kernel in bf16 multiply in exact
-# fp32 on the CUDA cores (bf16 inputs are widened, not rounded further), so
-# kernel and plain version differ in the order of sums only — and the fused
-# dq in the order its atomic adds land. In bf16 two fp32 values that close
-# may still round to neighbouring bf16 values: one bf16 step, 2^-7 of the
-# element (RTOL). The order of sums costs far less than 2^-12 of the row's
-# size (BWD_RULE["fused"]).
+# fp32 (all three kernels) multiply in exact fp32 on the CUDA cores, so
+# kernel and plain version differ in the order of sums only (the fused dq
+# in its fixed order of key tiles).
+# The fused kernel in bf16 runs on the tensor cores (first products of the
+# bf16 inputs, exact, summed in fp32) and carries p and ds into the second
+# products as a hi/lo pair of bf16 values: each term is then off by about
+# 2^-18 of itself, not 2^-9, so it keeps the row term of exact products,
+# 2^-12 of the row's size (BWD_RULE["fused"]; the emulation in
+# tests/test_torch_flash_fused_mma.py uses a fraction of it, and one
+# rounding instead of the pair breaks it). In bf16 two fp32 values that
+# close may still round to neighbouring bf16 values: one bf16 step, 2^-7
+# of the element (RTOL). Its absolute term is the split kernels' 2^-17, for
+# the reason given below: dp = do.v summed on the tensor cores, on rows
+# whose gradient cancels.
 # bf16 dq and dk/dv (the tensor-core kernels) round p and ds to bf16 before
 # the second products (dv = p^T.do, dk = ds^T.q, dq = ds.k), as the forward
 # rounds p before p.v (ROW_RTOL above): each term of those sums is off by up
@@ -624,7 +653,8 @@ def check_flash_decode_paged(gen):
 # g = 2 and 8), uses at most about half of it; a lost 64-key tile (dq) or a
 # lost 64-row tile of one query head (dk, dv) costs a few percent of the
 # row and breaks it many times over — the negative controls below emulate
-# both with the plain version and must break the rule of the split kernels.
+# both with the plain version and must break the rule of the split kernels,
+# and the fused kernel's rule by more than FUSED_CONTROL_MIN_USE.
 # These kernels also sum dp = do.v in another order than the plain version
 # (the tensor cores' k-steps), and where a row's gradient cancels to 0 only
 # that fp32 rounding is left: the first row under causal masking sees one
@@ -636,8 +666,9 @@ BWD_RULE = {  # (atol, rtol, row_rtol)
     "split": {torch.float32: (1e-4, 1e-4, 0.0),
               torch.bfloat16: (2.0 ** -17, 2.0 ** -7, 2.0 ** -7)},
     "fused": {torch.float32: (1e-4, 1e-4, 0.0),
-              torch.bfloat16: (1e-6, 2.0 ** -7, 2.0 ** -12)},
+              torch.bfloat16: (2.0 ** -17, 2.0 ** -7, 2.0 ** -12)},
 }
+FUSED_CONTROL_MIN_USE = 10.0  # the lost-tile controls under the fused rule
 BWD_TOLERANCE = {
     "bf16": list(BWD_RULE["split"][torch.bfloat16]),
     "bf16_fused": list(BWD_RULE["fused"][torch.bfloat16]),
@@ -730,11 +761,13 @@ def _time_bwd_kernels(q, k, v, do, lse, delta, kw, iters=5):
     }
 
 
-def _lost_tile_controls(q, k, v, do, o, lse, delta, want, dtype):
+def _lost_tile_controls(q, k, v, do, o, lse, delta, want, dtype,
+                        fused=False):
     """tolerance_use of the plain backward with one tile's contribution
     removed, against the full plain backward: keys 0..63 dropped from every
     dq row, and the last 64 query rows of head 0 dropped from dk and dv.
-    Causal; must exceed 1."""
+    Causal; under the split rule, or with fused=True the fused one; must
+    exceed 1."""
     from d9d_tpu_torch.ops.attention.flash import NEG_BIG, flash_attention_bwd_plain
 
     b, t, hq, d = q.shape
@@ -756,11 +789,12 @@ def _lost_tile_controls(q, k, v, do, o, lse, delta, want, dtype):
     do_l[:, t - 64:, 0] = 0
     delta_l = torch.einsum("bthd,bthd->bht", do_l.float(), o.float()).contiguous()
     _, dk_l, dv_l = flash_attention_bwd_plain(q, k, v, do_l, lse, delta_l)
-    return {"dq_without_key_tile_0": bwd_tolerance_use(dq_lost, want[0], dtype),
+    return {"dq_without_key_tile_0":
+                bwd_tolerance_use(dq_lost, want[0], dtype, fused),
             "dk_without_last_row_tile_of_head_0":
-                bwd_tolerance_use(dk_l, want[1], dtype),
+                bwd_tolerance_use(dk_l, want[1], dtype, fused),
             "dv_without_last_row_tile_of_head_0":
-                bwd_tolerance_use(dv_l, want[2], dtype)}
+                bwd_tolerance_use(dv_l, want[2], dtype, fused)}
 
 
 def _sdpa_bwd_library_ms(q, k, v, do, want_dq):
@@ -800,6 +834,7 @@ def check_flash_bwd(gen):
     worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
              for n in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")}
     worst_use = {n: 0.0 for n in worst}
+    repeats = [0]  # cases whose two fused runs were compared bit for bit
 
     def segs(b, t, pads):
         pad = torch.tensor(pads, device="cuda")[:, None]
@@ -811,9 +846,18 @@ def check_flash_bwd(gen):
         want = flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
         split = flash_attention_bwd(q, k, v, do, lse, delta, **kw)
         fused = flash_attention_bwd(q, k, v, do, lse, delta, fused=True, **kw)
+        # the fused dq is summed in a fixed order: a second run on the same
+        # inputs gives the same bits (dk and dv have no cross-block sums)
+        again = flash_attention_bwd(q, k, v, do, lse, delta, fused=True, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(fused, again)):
+            raise AssertionError(
+                f"flash_bwd_fused {tag} {dtype}: two runs differ by "
+                f"{[max_err(a, b_) for a, b_ in zip(fused, again)]}")
+        repeats[0] += 1
+        del again
         row = {"case": tag, "dtype": str(dtype).split(".")[-1],
-               "shape": [b, t, hq_, hkv_, d_]}
+               "shape": [b, t, hq_, hkv_, d_], "fused_repeat_equal": True}
         for name, got, which in (("flash_bwd_dq", split, (0,)),
                                  ("flash_bwd_dkv", split, (1, 2)),
                                  ("flash_bwd_fused", fused, (0, 1, 2))):
@@ -869,6 +913,12 @@ def check_flash_bwd(gen):
                                    torch.bfloat16)
     if min(controls.values()) <= 1.0:
         raise AssertionError(f"a lost tile passes the bf16 rule: {controls}")
+    fused_controls = _lost_tile_controls(q, k, v, do, o, lse, delta, want,
+                                         torch.bfloat16, fused=True)
+    if min(fused_controls.values()) <= FUSED_CONTROL_MIN_USE:
+        raise AssertionError(
+            f"a lost tile misses the fused bf16 rule by no more than "
+            f"{FUSED_CONTROL_MIN_USE}x: {fused_controls}")
     plain_ms = time_ms(
         lambda: flash_attention_bwd_plain(q, k, v, do, lse, delta), iters=3,
         warmup=1)
@@ -901,6 +951,8 @@ def check_flash_bwd(gen):
         "cases": cases, "tolerance": BWD_TOLERANCE,
         "negative_controls": controls,
         "negative_controls_rule": "bf16, dq and dk/dv (BWD_RULE['split'])",
+        "negative_controls_fused_rule": fused_controls,
+        "fused_repeat_bitwise_equal_cases": repeats[0],
         "library_ms_g8": library_ms_g8,
         "timed_shape": {"B": 2, "T": 2048, "Hq": hq, "Hkv": hkv, "D": d,
                         "dtype": "bfloat16", "causal": True},
@@ -1508,6 +1560,19 @@ def check_moe_ffn(gen):
     if min(controls.values()) <= 1.0:
         raise AssertionError(f"a negative control passes the rule: {controls}")
 
+    # B7 adds a token's top-k contributions by fp32 atomics, in the order
+    # they land (ROADMAP C6, an accepted divergence): two runs on the same
+    # inputs may differ in the last bits; read by how much
+    pos, kw = args["moe_ffn_gather_combine"]
+    first_run = mf.moe_ffn_gather_combine(*pos, **kw)
+    repeat = [max_err(mf.moe_ffn_gather_combine(*pos, **kw), first_run)
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    combine_repeat = {"runs": 4, "max_abs_diff_from_first": max(repeat),
+                      "bitwise_equal_runs": sum(r == 0.0 for r in repeat),
+                      "max_abs_of_output": float(first_run.float().abs().max())}
+    del first_run
+
     kernels = []
     timed = {}
     for name in MOE_KERNELS:
@@ -1535,6 +1600,7 @@ def check_moe_ffn(gen):
     return kernels, {
         "cases": cases, "tolerance": MOE_TOLERANCE,
         "negative_controls": controls,
+        "gather_combine_repeat": combine_repeat,
         "timed_shape": {"N": n, "K": k, "E": e, "h": h, "i": inter,
                         "dtype": "bfloat16", "m_pad": meta.m_pad,
                         "pairs": n * k,

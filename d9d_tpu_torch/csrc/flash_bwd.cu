@@ -23,17 +23,16 @@
 // flop/byte ridge of the H100.
 //
 // Design. Two families of kernels share the parameters, the masks, the
-// ranges and the tiles below. bfloat16 dq and dk/dv (kernels 0 and 1) run
-// on the tensor cores: flash_bwd_mma.cuh, mma.sync on bf16 tiles fed by
+// ranges and the tiles below. bfloat16 inputs run on the tensor cores:
+// dq and dk/dv in flash_bwd_mma.cuh (mma.sync on bf16 tiles fed by
 // cp.async, p and ds rounded to bf16 as the A operands of the second
-// products. float32 inputs (all three kernels) and the fused kernel (both
-// dtypes) run every product on the CUDA cores as fp32 FMAs over tiles
-// widened to fp32 in shared memory: float32 inputs keep exact fp32 products
-// (the exactness link of the parity chain), and bfloat16 inputs of the fused
-// kernel are widened exactly, so it differs from the plain version only in
-// the order of sums. The TPU grid's sequential dimension and its VMEM
-// accumulators become a loop inside the block with fp32 accumulators in
-// registers:
+// products), the fused kernel in flash_bwd_fused_mma.cuh (the same pieces,
+// with p and ds carried into the second products as a hi/lo pair of bf16
+// values). float32 inputs (all three kernels) run every product on the CUDA
+// cores as fp32 FMAs over tiles widened to fp32 in shared memory: exact fp32
+// products, the exactness link of the parity chain. The TPU grid's
+// sequential dimension and its VMEM accumulators become a loop inside the
+// block with fp32 accumulators in registers:
 //
 // - dq: one block per (batch row, kv head, tile of 64 query rows of the GQA
 //   group, r = ig*T + i as in the forward kernel); it loops over the key
@@ -43,11 +42,29 @@
 //   over the g query heads of the group and their 64-token tiles that can
 //   see the keys, and writes dk, dv once.
 // - fused: the dk/dv block, which also forms ds . k for its query rows and
-//   adds it into an fp32 dq buffer in device memory with atomicAdd. A
-//   resident [g*T, D] fp32 dq, as the TPU kernel keeps in VMEM, would not
-//   fit the SM's 228 KB of shared memory at real T (4 MB at g=4, T=2048,
-//   D=128). The order in which the blocks' atomic sums land is not fixed, so
-//   the fused dq may differ from run to run in the last bits.
+//   adds it into an fp32 dq buffer in device memory. A resident [g*T, D]
+//   fp32 dq, as the TPU kernel keeps in VMEM, would not fit the SM's 228 KB
+//   of shared memory at real T (4 MB at g=4, T=2048, D=128). The adds land
+//   in a fixed order, ascending key tile — the order in which the TPU
+//   kernel's sequential kv axis sums dq — so the fused dq is the same on
+//   every run: a zeroed int32 turnstile holds one counter per (batch row,
+//   query head, query tile) of 64 rows, and the block of key tile j waits
+//   until the counter of query tile i has counted every earlier key tile
+//   that visits i, adds its partial with plain loads and stores,
+//   __threadfence()s and advances the counter. Its size is B * Hq *
+//   ceil(T / 64) + 1 ints, whatever T. Deadlock freedom: a block waits only
+//   on blocks of lower key tiles of its own (batch row, kv head), and it
+//   takes its (kv head, key tile) from a ticket drawn at its start
+//   (atomicAdd on the turnstile's last int), in ascending order, (batch
+//   row, kv head) fastest, so that every head's key tile 0, the heaviest
+//   under causal masking, starts first. Tickets run in the order blocks
+//   start, so every block a waiter waits on has started before it — is
+//   resident or done — and never waits on a later one; blockIdx order,
+//   which the hardware does not promise to start in, is not relied on. A block visits its query tiles at the
+//   latest position first (all heads of the group at one position, then
+//   the next): under causal masking every key tile then reaches a query
+//   tile at the same step, so the blocks of one kv head move in lockstep
+//   and a wait lasts about one add.
 //
 // Global offsets (B4, `flash_attention_block` at pallas_flash.py:709: the
 // three TPU kernels with `has_positions`). A ring-attention step attends a
@@ -61,8 +78,9 @@
 // tiles they visited before.
 //
 // The CUDA-core kernels are synchronous (a tile is loaded, then used) and
-// hold one block per SM; the tensor-core kernels double-buffer their tiles
-// and hold two (see flash_bwd_mma.cuh). wgmma and TMA are left to later work.
+// hold one block per SM; the tensor-core kernels stream their tiles with
+// cp.async and hold two (see flash_bwd_mma.cuh, flash_bwd_fused_mma.cuh).
+// wgmma and TMA are left to later work.
 #include "attn_tile.cuh"
 
 namespace d9d {
@@ -79,6 +97,8 @@ struct BwdParams {
   const int* k_tag;      // [B, T] or null
   void* dq;              // kernel 0: [B, T, Hq, D] contiguous, q's dtype
   float* dq_acc;         // kernel 2: [B, T, Hq, D] contiguous fp32, zeroed
+  int* turnstile;        // kernel 2: [n_counters + 1] int32, zeroed
+  int n_counters;        // B * Hq * ceil(T / 64); the ticket follows them
   void* dk;              // kernels 1, 2: [B, T, Hkv, D] contiguous
   void* dv;
   int B, T, Hq, Hkv, g;
@@ -130,6 +150,68 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int key, int qpos,
   if (p.q_tag) ok = ok && qtag == ktag;
   return ok;
 }
+
+// ---- the fused kernels' fixed-order dq (see the design notes above) -------
+
+// The block's ticket: its key tile and its b * Hkv + kv head (fastest), in
+// the order blocks start. Every thread of the block calls it once.
+__device__ __forceinline__ int2 fused_ticket(const BwdParams& p) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(&p.turnstile[p.n_counters], 1);
+  __syncthreads();
+  const int n_groups = p.B * p.Hkv;
+  return make_int2(ticket / n_groups, ticket % n_groups);
+}
+
+// The first key tile that visits query tile i0 (a multiple of 64): key tile
+// j visits i0 when i_first(j) <= i0 < i_end(j) (the ranges of
+// bwd_dkv_kernel), both bounds ascend with j, so the visitors of i0 are the
+// key tiles from this one up to the last whose i_first is <= i0. Without a
+// window every i_end is T. With one, i_end(j) > i0 exactly when j's last key
+// exceeds i0 - window + shift.
+__device__ __forceinline__ int first_key_tile_of(const BwdParams& p, int i0) {
+  if (p.window < 0) return 0;
+  const long long x = (long long)i0 - p.window + p.shift;
+  return x < BWD_BK - 1 ? 0 : (int)((x - (BWD_BK - 1)) / BWD_BK + 1);
+}
+
+__device__ __forceinline__ int* fused_counter(const BwdParams& p, int b,
+                                              int hq, int i0) {
+  const int n_qt = (p.T + BWD_RQ - 1) / BWD_RQ;
+  return p.turnstile + ((long long)b * p.Hq + hq) * n_qt + i0 / BWD_RQ;
+}
+
+// Wait until `counter` reaches `turn` (thread 0 spins with acquire loads,
+// then the block's barrier passes the order on), so that the adds of every
+// earlier visitor are visible to the block's loads below.
+__device__ __forceinline__ void wait_turn(const int* counter, int turn) {
+  if (threadIdx.x == 0) {
+    int seen;
+    while (true) {
+      asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(counter) : "memory");
+      if (seen >= turn) break;
+      __nanosleep(32);
+    }
+  }
+  __syncthreads();
+}
+
+// After the block's adds: fence them, then let the next visitor in.
+__device__ __forceinline__ void pass_turn(int* counter, int turn) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.global.release.gpu.b32 [%0], %1;\n"
+                 :: "l"(counter), "r"(turn + 1) : "memory");
+}
+
+// Between wait_turn and pass_turn a block adds its partial through L2
+// (ld.cg / st.cg: never a stale L1 line of another block's add), loading
+// every value it adds to before it stores any: the compiler cannot move a
+// load above a store it may alias, so load, add, store per element would
+// pay one L2 round trip per element. (Reductions in L2 in the same order,
+// red.global.add, were slower on the card.)
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -297,7 +379,10 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // grid: x = tile of keys, y = b * Hkv + kv head. FUSED adds ds . k of every
-// visited query tile into p.dq_acc with atomicAdd.
+// visited query tile into p.dq_acc in ascending key-tile order, takes its
+// (kv head, key tile) from a ticket, and visits the query tiles latest
+// position first (the design notes above); the split kernel keeps blockIdx
+// and the ascending order, head by head.
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
   constexpr int RQ = BWD_RQ, BK = BWD_BK, NT = BWD_NT;
@@ -323,11 +408,17 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
   int* ktag_s = rtag_s + RQ;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / p.Hkv;
-  const int hkv = blockIdx.y % p.Hkv;
-  const long long bs = blockIdx.y;
+  int jt = blockIdx.x, grp = blockIdx.y;
+  if constexpr (FUSED) {
+    const int2 tk = fused_ticket(p);
+    jt = tk.x;
+    grp = tk.y;
+  }
+  const int b = grp / p.Hkv;
+  const int hkv = grp % p.Hkv;
+  const long long bs = grp;
   const int rows = p.g * p.T;
-  const int j0 = blockIdx.x * BK;
+  const int j0 = jt * BK;
   const int j_last = min(j0 + BK, p.T) - 1;
 
   const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb;
@@ -356,117 +447,130 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
   const int od = tid % D;
   const int cg = tid / D;  // this thread's keys: cg*KPT ...; rows: cg*QPT ...
 
-  for (int ig = 0; ig < p.g; ++ig) {
+  const int n_qt = (i_end - i_first + RQ - 1) / RQ;  // per query head
+  for (int n = 0; n < p.g * n_qt; ++n) {
+    int ig, i0;
+    if constexpr (FUSED) {
+      ig = n % p.g;
+      i0 = i_first + (n_qt - 1 - n / p.g) * RQ;
+    } else {
+      ig = n / n_qt;
+      i0 = i_first + (n % n_qt) * RQ;
+    }
     const int hq = hkv * p.g + ig;
-    for (int i0 = i_first; i0 < i_end; i0 += RQ) {
-      __syncthreads();  // previous q tile consumed (and k/v tiles ready)
-      load_rows<T, D, RQ, NT>(q_s, qb, p.q_st, p.q_sh, hq, p.T, i0, p.T);
-      load_rows<T, D, RQ, NT>(do_s, ob, p.o_st, p.o_sh, hq, p.T, i0, p.T);
-      if (tid < RQ) {
-        const int i = i0 + tid;
-        const bool ok = i < p.T;
-        rpos_s[tid] = ok ? i + p.shift : ROW_INVALID;
-        rtag_s[tid] = (ok && p.q_tag) ? p.q_tag[(long long)b * p.T + i] : 1;
-        lse_s[tid] = ok ? p.lse[bs * rows + ig * p.T + i] : 0.f;
-        dl_s[tid] = ok ? p.delta[bs * rows + ig * p.T + i] : 0.f;
-      }
-      __syncthreads();
+    __syncthreads();  // previous q tile consumed (and k/v tiles ready)
+    load_rows<T, D, RQ, NT>(q_s, qb, p.q_st, p.q_sh, hq, p.T, i0, p.T);
+    load_rows<T, D, RQ, NT>(do_s, ob, p.o_st, p.o_sh, hq, p.T, i0, p.T);
+    if (tid < RQ) {
+      const int i = i0 + tid;
+      const bool ok = i < p.T;
+      rpos_s[tid] = ok ? i + p.shift : ROW_INVALID;
+      rtag_s[tid] = (ok && p.q_tag) ? p.q_tag[(long long)b * p.T + i] : 1;
+      lse_s[tid] = ok ? p.lse[bs * rows + ig * p.T + i] : 0.f;
+      dl_s[tid] = ok ? p.delta[bs * rows + ig * p.T + i] : 0.f;
+    }
+    __syncthreads();
 
-      // ---- p^T and ds^T of the [RQ, BK] tile ------------------------------
-      {
-        const int jj = tid % BK;
-        const int rg = tid / BK;
-        float acc_s[RPT], acc_p[RPT];
+    // ---- p^T and ds^T of the [RQ, BK] tile ------------------------------
+    {
+      const int jj = tid % BK;
+      const int rg = tid / BK;
+      float acc_s[RPT], acc_p[RPT];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) { acc_s[i] = 0.f; acc_p[i] = 0.f; }
+      for (int i = 0; i < RPT; ++i) { acc_s[i] = 0.f; acc_p[i] = 0.f; }
 #pragma unroll 2
-        for (int d = 0; d < D; d += 4) {
-          const float4 k4 = *reinterpret_cast<const float4*>(&k_s[jj * DP + d]);
-          const float4 v4 = *reinterpret_cast<const float4*>(&v_s[jj * DP + d]);
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const int rr = rg + i * NRG;
-            const float4 q4 =
-                *reinterpret_cast<const float4*>(&q_s[rr * DP + d]);
-            const float4 o4 =
-                *reinterpret_cast<const float4*>(&do_s[rr * DP + d]);
-            acc_s[i] = fmaf(q4.x, k4.x, acc_s[i]);
-            acc_s[i] = fmaf(q4.y, k4.y, acc_s[i]);
-            acc_s[i] = fmaf(q4.z, k4.z, acc_s[i]);
-            acc_s[i] = fmaf(q4.w, k4.w, acc_s[i]);
-            acc_p[i] = fmaf(o4.x, v4.x, acc_p[i]);
-            acc_p[i] = fmaf(o4.y, v4.y, acc_p[i]);
-            acc_p[i] = fmaf(o4.z, v4.z, acc_p[i]);
-            acc_p[i] = fmaf(o4.w, v4.w, acc_p[i]);
-          }
-        }
-        const int key = j0 + jj;
-        const int ktag = ktag_s[jj];
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(&k_s[jj * DP + d]);
+        const float4 v4 = *reinterpret_cast<const float4*>(&v_s[jj * DP + d]);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int rr = rg + i * NRG;
-          const bool ok = visible(p, key, rpos_s[rr], rtag_s[rr], ktag);
-          const float s = ok ? acc_s[i] * p.scale : NEG_BIG;
-          const float pr = expf(s - lse_s[rr]);
-          pt_s[jj * PP + rr] = pr;
-          dst_s[jj * PP + rr] = pr * (acc_p[i] - dl_s[rr]) * p.scale;
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(&q_s[rr * DP + d]);
+          const float4 o4 =
+              *reinterpret_cast<const float4*>(&do_s[rr * DP + d]);
+          acc_s[i] = fmaf(q4.x, k4.x, acc_s[i]);
+          acc_s[i] = fmaf(q4.y, k4.y, acc_s[i]);
+          acc_s[i] = fmaf(q4.z, k4.z, acc_s[i]);
+          acc_s[i] = fmaf(q4.w, k4.w, acc_s[i]);
+          acc_p[i] = fmaf(o4.x, v4.x, acc_p[i]);
+          acc_p[i] = fmaf(o4.y, v4.y, acc_p[i]);
+          acc_p[i] = fmaf(o4.z, v4.z, acc_p[i]);
+          acc_p[i] = fmaf(o4.w, v4.w, acc_p[i]);
         }
       }
-      __syncthreads();
+      const int key = j0 + jj;
+      const int ktag = ktag_s[jj];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int rr = rg + i * NRG;
+        const bool ok = visible(p, key, rpos_s[rr], rtag_s[rr], ktag);
+        const float s = ok ? acc_s[i] * p.scale : NEG_BIG;
+        const float pr = expf(s - lse_s[rr]);
+        pt_s[jj * PP + rr] = pr;
+        dst_s[jj * PP + rr] = pr * (acc_p[i] - dl_s[rr]) * p.scale;
+      }
+    }
+    __syncthreads();
 
-      // ---- dv += p^T . do, dk += ds^T . q ---------------------------------
+    // ---- dv += p^T . do, dk += ds^T . q ---------------------------------
 #pragma unroll 2
-      for (int rr = 0; rr < RQ; rr += 4) {
-        float o[4], q[4];
+    for (int rr = 0; rr < RQ; rr += 4) {
+      float o[4], q[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          o[c] = do_s[(rr + c) * DP + od];
-          q[c] = q_s[(rr + c) * DP + od];
-        }
+      for (int c = 0; c < 4; ++c) {
+        o[c] = do_s[(rr + c) * DP + od];
+        q[c] = q_s[(rr + c) * DP + od];
+      }
 #pragma unroll
-        for (int m = 0; m < KPT; ++m) {
-          const int jj = cg * KPT + m;
-          const float4 p4 = *reinterpret_cast<const float4*>(&pt_s[jj * PP + rr]);
+      for (int m = 0; m < KPT; ++m) {
+        const int jj = cg * KPT + m;
+        const float4 p4 = *reinterpret_cast<const float4*>(&pt_s[jj * PP + rr]);
+        const float4 d4 =
+            *reinterpret_cast<const float4*>(&dst_s[jj * PP + rr]);
+        dv_acc[m] = fmaf(p4.x, o[0], dv_acc[m]);
+        dv_acc[m] = fmaf(p4.y, o[1], dv_acc[m]);
+        dv_acc[m] = fmaf(p4.z, o[2], dv_acc[m]);
+        dv_acc[m] = fmaf(p4.w, o[3], dv_acc[m]);
+        dk_acc[m] = fmaf(d4.x, q[0], dk_acc[m]);
+        dk_acc[m] = fmaf(d4.y, q[1], dk_acc[m]);
+        dk_acc[m] = fmaf(d4.z, q[2], dk_acc[m]);
+        dk_acc[m] = fmaf(d4.w, q[3], dk_acc[m]);
+      }
+    }
+
+    if constexpr (FUSED) {
+      // ---- dq (rows cg*QPT ...) += ds . k, added into device memory ----
+      float acc[QPT];
+#pragma unroll
+      for (int m = 0; m < QPT; ++m) acc[m] = 0.f;
+      const int rq0 = cg * QPT;
+#pragma unroll 2
+      for (int jj = 0; jj < BK; ++jj) {
+        const float kv = k_s[jj * DP + od];
+#pragma unroll
+        for (int m = 0; m < QPT; m += 4) {
           const float4 d4 =
-              *reinterpret_cast<const float4*>(&dst_s[jj * PP + rr]);
-          dv_acc[m] = fmaf(p4.x, o[0], dv_acc[m]);
-          dv_acc[m] = fmaf(p4.y, o[1], dv_acc[m]);
-          dv_acc[m] = fmaf(p4.z, o[2], dv_acc[m]);
-          dv_acc[m] = fmaf(p4.w, o[3], dv_acc[m]);
-          dk_acc[m] = fmaf(d4.x, q[0], dk_acc[m]);
-          dk_acc[m] = fmaf(d4.y, q[1], dk_acc[m]);
-          dk_acc[m] = fmaf(d4.z, q[2], dk_acc[m]);
-          dk_acc[m] = fmaf(d4.w, q[3], dk_acc[m]);
+              *reinterpret_cast<const float4*>(&dst_s[jj * PP + rq0 + m]);
+          acc[m + 0] = fmaf(d4.x, kv, acc[m + 0]);
+          acc[m + 1] = fmaf(d4.y, kv, acc[m + 1]);
+          acc[m + 2] = fmaf(d4.z, kv, acc[m + 2]);
+          acc[m + 3] = fmaf(d4.w, kv, acc[m + 3]);
         }
       }
-
-      if constexpr (FUSED) {
-        // ---- dq (rows cg*QPT ...) += ds . k, added into device memory ----
-        float acc[QPT];
+      int* counter = fused_counter(p, b, hq, i0);
+      const int turn = jt - first_key_tile_of(p, i0);
+      const long long row_stride = (long long)p.Hq * D;
+      float* dq_col =
+          p.dq_acc + ((long long)b * p.T + i0 + rq0) * row_stride + hq * D + od;
+      wait_turn(counter, turn);
 #pragma unroll
-        for (int m = 0; m < QPT; ++m) acc[m] = 0.f;
-        const int rq0 = cg * QPT;
-#pragma unroll 2
-        for (int jj = 0; jj < BK; ++jj) {
-          const float kv = k_s[jj * DP + od];
+      for (int m = 0; m < QPT; ++m)
+        if (i0 + rq0 + m < p.T) acc[m] += __ldcg(dq_col + m * row_stride);
 #pragma unroll
-          for (int m = 0; m < QPT; m += 4) {
-            const float4 d4 =
-                *reinterpret_cast<const float4*>(&dst_s[jj * PP + rq0 + m]);
-            acc[m + 0] = fmaf(d4.x, kv, acc[m + 0]);
-            acc[m + 1] = fmaf(d4.y, kv, acc[m + 1]);
-            acc[m + 2] = fmaf(d4.z, kv, acc[m + 2]);
-            acc[m + 3] = fmaf(d4.w, kv, acc[m + 3]);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < QPT; ++m) {
-          const int i = i0 + rq0 + m;
-          if (i < p.T)
-            atomicAdd(&p.dq_acc[(((long long)b * p.T + i) * p.Hq + hq) * D + od],
-                      acc[m]);
-        }
-      }
+      for (int m = 0; m < QPT; ++m)
+        if (i0 + rq0 + m < p.T) __stcg(dq_col + m * row_stride, acc[m]);
+      pass_turn(counter, turn);
     }
   }
 
@@ -485,9 +589,10 @@ __global__ void __launch_bounds__(BWD_NT) bwd_dkv_kernel(const BwdParams p) {
 }  // namespace
 }  // namespace d9d
 
-// kernels 0 and 1 for bfloat16 (tensor cores); they use BwdParams, visible()
-// and the tile constants above
+// kernels 0, 1 and 2 for bfloat16 (tensor cores); they use BwdParams,
+// visible(), the fused kernels' turnstile and the tile constants above
 #include "flash_bwd_mma.cuh"
+#include "flash_bwd_fused_mma.cuh"
 
 namespace d9d {
 namespace {
@@ -503,16 +608,17 @@ cudaError_t launch_cuda_cores(Kernel fn, size_t smem, int rows,
   return cudaGetLastError();
 }
 
-// bf16 dq and dk/dv take the tensor-core kernels, everything else the
-// CUDA-core ones; the dtype alone decides (no other path exists for them)
+// bf16 takes the tensor-core kernels, fp32 the CUDA-core ones; the dtype
+// alone decides (no other path exists for them)
 template <typename T, int D>
 cudaError_t launch_bwd(const BwdParams& p, int kernel, cudaStream_t stream) {
-  if (kernel == 2)
-    return launch_cuda_cores(bwd_dkv_kernel<T, D, true>, dkv_smem_bytes<D>(),
-                             p.T, p, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (kernel == 2) return launch_bwd_fused_mma<D>(p, stream);
     return launch_bwd_mma<D>(p, kernel, stream);
   } else {
+    if (kernel == 2)
+      return launch_cuda_cores(bwd_dkv_kernel<T, D, true>, dkv_smem_bytes<D>(),
+                               p.T, p, stream);
     if (kernel == 0)
       return launch_cuda_cores(bwd_dq_kernel<T, D>, dq_smem_bytes<D>(),
                                p.g * p.T, p, stream);
@@ -535,7 +641,9 @@ cudaError_t dispatch_bwd(const BwdParams& p, int D, int kernel,
 using d9d::BwdParams;
 
 // kernel: 0 = dq (writes dq in the inputs' dtype), 1 = dk/dv, 2 = fused
-// (dk/dv, and dq added into the zeroed fp32 buffer `dq`). dtype: 0 =
+// (dk/dv, and dq added into the zeroed fp32 buffer `dq` in ascending key-tile
+// order through `dq_turnstile`, a zeroed int32 buffer of B * Hq *
+// ceil(T / 64) + 1 elements; null for kernels 0 and 1). dtype: 0 =
 // float32, 1 = bfloat16. Input strides are in elements with a contiguous
 // head_dim: q/do [B, T, Hq, D]-addressed, k/v [B, T, Hkv, D]-addressed.
 // Outputs are contiguous: dq [B, T, Hq, D], dk/dv [B, T, Hkv, D]. lse and
@@ -545,7 +653,7 @@ using d9d::BwdParams;
 extern "C" int d9d_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* q_seg, const void* kv_seg,
-    void* dq, void* dk, void* dv,
+    void* dq, void* dk, void* dv, void* dq_turnstile,
     int B, int T, int Hq, int Hkv, int D, int dtype, int kernel,
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
@@ -553,7 +661,7 @@ extern "C" int d9d_flash_bwd(
     long long o_sb, long long o_st, long long o_sh,
     float scale, int causal, int window, int shift, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || kernel < 0 ||
-      kernel > 2) {
+      kernel > 2 || (kernel == 2 && dq_turnstile == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   BwdParams p{};
@@ -564,6 +672,8 @@ extern "C" int d9d_flash_bwd(
   p.k_tag = static_cast<const int*>(kv_seg);
   p.dq = kernel == 0 ? dq : nullptr;
   p.dq_acc = kernel == 2 ? static_cast<float*>(dq) : nullptr;
+  p.turnstile = kernel == 2 ? static_cast<int*>(dq_turnstile) : nullptr;
+  p.n_counters = B * Hq * ((T + d9d::BWD_RQ - 1) / d9d::BWD_RQ);
   p.dk = dk; p.dv = dv;
   p.B = B; p.T = T; p.Hq = Hq; p.Hkv = Hkv; p.g = Hq / Hkv;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;

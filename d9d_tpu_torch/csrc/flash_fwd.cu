@@ -27,12 +27,12 @@
 // group); the loop over key tiles inside the block replaces the Pallas grid's
 // sequential kv dimension and its VMEM scratch. Key tiles wholly in the
 // causal future or behind the window are never visited. bfloat16 inputs take
-// the tensor-core core (attn_mma.cuh: 64-row tiles, mma.sync bf16 products,
-// softmax in registers); float32 inputs keep exact fp32 products on the CUDA
-// cores (attn_tile.cuh: 32-row tiles). Both are synchronous — one key tile is
-// loaded, then used — so neither hides memory latency behind the products
-// yet; asynchronous tile loads and wgmma are the next step.
-#include "attn_mma.cuh"
+// the core designed for the H100 (attn_fwd_sm90.cuh: 128-row blocks of 8
+// warps, two per SM, 64-key tiles double-buffered by cp.async, mma.sync bf16
+// products, softmax in registers on exp2f, the mask only on edge tiles,
+// causal row tiles heaviest first); float32 inputs keep exact fp32 products
+// on the CUDA cores (attn_tile.cuh: 32-row tiles, synchronous tile loads).
+#include "attn_fwd_sm90.cuh"
 #include "attn_tile.cuh"
 
 using namespace d9d;
@@ -44,8 +44,8 @@ cudaError_t dispatch_fwd_f32(const AttnParams& p, int D, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 cudaError_t dispatch_fwd_bf16(const AttnParams& p, int D, cudaStream_t stream) {
-  if (D == 128) return launch_attn_mma<128>(p, stream);
-  if (D == 64) return launch_attn_mma<64>(p, stream);
+  if (D == 128) return launch_attn_fwd_sm90<128>(p, stream);
+  if (D == 64) return launch_attn_fwd_sm90<64>(p, stream);
   return cudaErrorInvalidValue;
 }
 }  // namespace

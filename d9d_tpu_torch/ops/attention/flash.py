@@ -10,9 +10,10 @@ backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, ``_bwd_fused_kernel`` /
 the block at global offsets that ring attention is built from
 (``flash_attention_block`` with ``_flash_ol``, the kernels'
 ``has_positions`` mode, and ``combine_attention_chunks``). The kernels
-themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` and
-``d9d_tpu_torch/csrc/flash_bwd.cu`` (whose bf16 dq and dk/dv kernels run on
-the tensor cores, ``flash_bwd_mma.cuh``).
+themselves are ``d9d_tpu_torch/csrc/flash_fwd.cu`` (bf16 on the tensor
+cores, ``attn_fwd_sm90.cuh``) and ``d9d_tpu_torch/csrc/flash_bwd.cu``
+(whose bf16 kernels run on the tensor cores: dq and dk/dv in
+``flash_bwd_mma.cuh``, the fused one in ``flash_bwd_fused_mma.cuh``).
 
 Global offsets: ``q_offset`` / ``k_offset`` place the query rows at
 positions ``q_offset + [0, T)`` and the keys at ``k_offset + [0, T)`` for
@@ -333,9 +334,10 @@ def fused_bwd_applies(
     """Does ``fused=True`` run the one-pass kernel for CUDA tensors of this
     shape? Counterpart of the JAX package's ``fused_bwd_applies``, but the
     port's fused kernel keeps dq in an fp32 buffer in device memory rather
-    than on chip, so no length limit applies: every shape the split kernels
-    take, the fused kernel takes too. A shape neither takes raises; nothing
-    falls back silently from one to the other."""
+    than on chip, and orders its adds with a turnstile linear in T, so no
+    length limit applies: every shape the split kernels take, the fused
+    kernel takes too. A shape neither takes raises; nothing falls back
+    silently from one to the other."""
     return (
         t > 0
         and num_kv_heads > 0
@@ -368,10 +370,11 @@ def flash_attention_bwd(
     CUDA tensors launch ``d9d_flash_bwd`` (``csrc/flash_bwd.cu``) on the
     current stream: the dq kernel then the dk/dv kernel (for bf16 on the
     tensor cores, with p and ds rounded to bf16 before the second
-    products), or with ``fused=True`` the one-pass kernel, which adds dq
-    into a zeroed fp32 buffer by ``atomicAdd`` (the order of those sums is
-    not fixed, so the fused dq may differ between runs in its last bits)
-    followed by one cast to the inputs' dtype. Anything the kernels do not take raises. CPU
+    products), or with ``fused=True`` the one-pass kernel (for bf16 on the
+    tensor cores too, with p and ds as hi/lo bf16 pairs), which adds dq
+    into a zeroed fp32 buffer in ascending key-tile order, so the same
+    inputs give the same dq on every run, followed by one cast to the
+    inputs' dtype. Anything the kernels do not take raises. CPU
     tensors take the plain version. Launch counters:
     ``flash_attention_bwd.dq_launches`` / ``dkv_launches`` /
     ``fused_launches``; ``plain_calls`` counts the CPU path. Given
@@ -446,14 +449,26 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
+def fused_turnstile_len(b: int, hq: int, t: int) -> int:
+    """int32 elements of the fused kernel's zeroed turnstile: one counter
+    per (batch row, query head, tile of 64 query rows) that orders the dq
+    adds, and the ticket that orders the blocks. Linear in T."""
+    return b * hq * -(-t // 64) + 1
+
+
 def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
                 scale, causal, window_size, shift=0) -> None:
     """One launch of ``d9d_flash_bwd`` (kernel 0 = dq, 1 = dk/dv, 2 =
-    fused) on checked tensors; raises on a launch error. Counts nothing:
-    :func:`flash_attention_bwd` counts its own launches."""
+    fused, which gets a fresh zeroed turnstile) on checked tensors; raises
+    on a launch error. Counts nothing: :func:`flash_attention_bwd` counts
+    its own launches."""
     from d9d_tpu_torch.ops import kernel_lib
 
     b, t, hq, d = q.shape
+    turnstile = None
+    if kernel == 2:
+        turnstile = torch.zeros(fused_turnstile_len(b, hq, t),
+                                dtype=torch.int32, device=q.device)
     lib = kernel_lib.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -463,6 +478,7 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, qs, ks, dq, dk, dv, code,
             None if qs is None else qs.data_ptr(),
             None if ks is None else ks.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if turnstile is None else turnstile.data_ptr(),
             b, t, hq, k.shape[2], d, code, kernel,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

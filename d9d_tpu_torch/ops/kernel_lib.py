@@ -54,6 +54,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,              # q, k, v, do
         _P, _P, _P, _P,              # lse, delta, q_seg, kv_seg (nullable)
         _P, _P, _P,                  # dq (fp32 accumulator when fused), dk, dv
+        _P,                          # dq turnstile (fused; nullable)
         _I, _I, _I, _I, _I, _I, _I,  # B, T, Hq, Hkv, D, dtype, kernel
         _L, _L, _L,                  # q strides (batch, token, head)
         _L, _L, _L,                  # k strides
