@@ -16,7 +16,10 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the port never calls it), and compute the card's least time for the work:
    the flash forward and decode kernels, the paged decode kernel (bf16,
    fp32 and int8 pools, shuffled and shared page tables, pages of 4, 8 and
-   16, with a lost-page negative control), the three flash backward kernels
+   16, with a lost-page negative control; both decode kernels at starts on
+   tile edges, every case run twice and required equal bit for bit, their
+   own device time read from the profiler beside the wrapper loop's, and
+   the bf16 cluster core timed at each cluster size), the three flash backward kernels
    (dq, dk/dv and fused — bf16 on the tensor cores; every fused case run
    twice and required equal bit for bit, its dq being summed in a fixed
    order) and the three MoE expert-FFN kernels (aligned, gather,
@@ -112,6 +115,33 @@ def time_ms(fn, iters=20, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_time(fn, kernel_tag, iters=20, warmup=3):
+    """Device time per call of ``fn`` read from ``torch.profiler`` over
+    ``iters`` calls: ``(ms of the kernels whose name holds ``kernel_tag``,
+    ms of every kernel the calls launched, kernels per call by name)``.
+    Unlike :func:`time_ms` it leaves out the host time of the wrapper
+    between launches; null where the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        return None, None, None
+    own = sum(e.self_device_time_total for e in kernels
+               if kernel_tag in e.key)
+    per_call = {e.key[:72]: e.count / iters for e in kernels}
+    return own / 1e3 / iters, total / 1e3 / iters, per_call
 
 
 def max_err(a, b):
@@ -234,7 +264,7 @@ def check_flash_fwd(gen):
         cases.append({"case": tag, "dtype": str(dtype).split(".")[-1],
                       "shape": [b, t, hq, hkv, d], "max_abs_err": err,
                       "tolerance_use": use,
-                      "lse_err": lerr,
+                      "lse_err": lerr, "two_runs_equal": True,
                       "ms": time_ms(lambda: flash_attention(q, k, v, **kw),
                                     iters=5, warmup=1)})
         return q, k, v
@@ -338,6 +368,34 @@ def check_flash_fwd(gen):
     }
 
 
+# The decode kernels' own device time is read from the profiler over the
+# kernels whose names hold this tag (the cores and the split combine of
+# csrc/attn_*.cuh); the wrapper's other launches are reported beside it.
+DECODE_KERNEL_TAG = "d9d::attn_"
+# per-row write indices at the edges of 64-key tiles (0, 63, 64, 65), of a
+# 1024-key span, and the cache's last slot (S - 1 = 4095)
+DECODE_EDGE_STARTS = (0, 63, 64, 65, 1023, 1024, 2047, 4095)
+
+
+DECODE_CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+def cluster_sweep(call):
+    """Device ms per call of the cluster core at each cluster size, the
+    wrapper's shape rule (``decode_cluster``) set aside for the reading."""
+    from d9d_tpu_torch.ops.attention import decode
+
+    rule = decode.decode_cluster
+    out = {}
+    try:
+        for n in DECODE_CLUSTER_SIZES:
+            decode.decode_cluster = lambda *a, n=n, **k: n
+            out[str(n)] = device_time(call, DECODE_KERNEL_TAG, iters=50)[0]
+    finally:
+        decode.decode_cluster = rule
+    return out
+
+
 def check_flash_decode(gen):
     import torch.nn.functional as F
 
@@ -356,7 +414,10 @@ def check_flash_decode(gen):
         kc = _rand((bb, hkv, s_len, d), dtype, gen)
         vc = _rand((bb, hkv, s_len, d), dtype, gen)
         o, lse = flash_decode(q, kc, vc, start=start, **kw)
+        o2, lse2 = flash_decode(q, kc, vc, start=start, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash_decode {tag} {dtype}: two runs differ")
         op, lsep = flash_decode_plain(q, kc, vc, start=start, **kw)
         err, lerr = max_err(o, op), max_err(lse, lsep)
         use = tolerance_use(o, op, dtype)
@@ -370,7 +431,7 @@ def check_flash_decode(gen):
                       "shape": [bb, t, hq, hkv, s_len, d],
                       "max_abs_err": err,
                       "tolerance_use": use,
-                      "lse_err": lerr,
+                      "lse_err": lerr, "two_runs_equal": True,
                       "ms": time_ms(
                           lambda: flash_decode(q, kc, vc, start=start, **kw),
                           iters=5, warmup=1)})
@@ -383,8 +444,11 @@ def check_flash_decode(gen):
     # every slot at or before its position dead (fully masked row -> zeros)
     valid = torch.arange(s_len, device="cuda")[None, :] >= torch.tensor(
         [1, 0, 3, 0, 17, 0, 200, 5], device="cuda")[:, None]
+    # starts at the edges of 64-key tiles and of the key split
+    edges = torch.tensor(DECODE_EDGE_STARTS, device="cuda", dtype=torch.int32)
     for dtype in (torch.bfloat16, torch.float32):
         compare("step", dtype, 1, spread(1))
+        compare("step_edges", dtype, 1, edges)
         compare("chunk64", dtype, 64, spread(64))
         _, _, _, o = compare("step_kv_valid", dtype, 1, spread(1),
                              kv_valid=valid)
@@ -403,24 +467,55 @@ def check_flash_decode(gen):
     q, kc, vc, _ = compare("step_timed", torch.bfloat16, 1, start,
                            kv_valid=valid)
 
-    ms = time_ms(lambda: flash_decode(q, kc, vc, start=start, kv_valid=valid),
-                 iters=50)
+    def call():
+        return flash_decode(q, kc, vc, start=start, kv_valid=valid)
+
+    ms = time_ms(call, iters=50)
+    dev_ms, dev_all_ms, per_call = device_time(call, DECODE_KERNEL_TAG,
+                                               iters=50)
+    sweep = cluster_sweep(call)
+    # one 64-key tile a row: the launch, the first tile's trip and the merge
+    one_tile = cluster_sweep(lambda: flash_decode(
+        q, kc, vc, start=torch.full_like(start, 63)))
+    # the batch rows at the decode profile's cache (1000 tokens): the
+    # serving shape
+    serving = cluster_sweep(lambda: flash_decode(
+        q, kc, vc, start=torch.full_like(start, 999)))
+    from d9d_tpu_torch.ops.attention.decode import cluster_capacity
+
+    capacity = cluster_capacity(q.device, False, False, d)
     plain_ms = time_ms(
         lambda: flash_decode_plain(q, kc, vc, start=start, kv_valid=valid),
         iters=5)
     pos = torch.arange(s_len, device="cuda")[None, :]
     mask = ((pos <= start[:, None]) & valid)[:, None, None, :]
     qh = q.transpose(1, 2)
+    o, _ = call()
+    # the yardstick: one call on the kernel's own bytes (kv heads shared by
+    # their query groups), and the earlier reading on a cache whose kv heads
+    # were repeated g times beforehand (g times the bytes)
     kh = kc.repeat_interleave(hq // hkv, dim=1)
     vh = vc.repeat_interleave(hq // hkv, dim=1)
     lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    o, _ = flash_decode(q, kc, vc, start=start, kv_valid=valid)
     lib_err = max_err(lib.transpose(1, 2), o)
     if not within_tolerance(lib.transpose(1, 2), o, torch.bfloat16):
         raise AssertionError(f"flash_decode vs library call: {lib_err}")
-    library_ms = time_ms(
+    library_ms_repeated = time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
         iters=50)
+    library_ms, gqa_note = library_ms_repeated, None
+    try:
+        lib = F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask,
+                                             enable_gqa=True)
+    except RuntimeError as exc:  # a yardstick only: say so and keep the old
+        gqa_note = f"enable_gqa with a bool mask refused: {exc}"[:200]
+    else:
+        lib_err = max_err(lib.transpose(1, 2), o)
+        if not within_tolerance(lib.transpose(1, 2), o, torch.bfloat16):
+            raise AssertionError(f"flash_decode vs GQA library call: {lib_err}")
+        library_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qh, kc, vc, attn_mask=mask, enable_gqa=True), iters=50)
 
     nbytes = flash_decode_bytes(start, 1, b, hq, hkv, d, 2) + b * s_len * 4
     flops = 4.0 * hq * d * float((start.cpu().to(torch.int64) + 1).sum())
@@ -431,12 +526,20 @@ def check_flash_decode(gen):
         "replaces": "d9d_tpu/ops/attention/pallas_decode.py:290",
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_fp32": worst[torch.float32],
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(by_ops, by_bytes),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": library_ms, "library_max_abs_diff": lib_err,
+        "library_ms_repeated_kv": library_ms_repeated,
     }, {
         "cases": cases, "tolerance": TOLERANCE,
+        "device_ms_all_kernels": dev_all_ms, "kernels_per_call": per_call,
+        "cluster_sweep_device_ms": sweep,
+        "one_tile_device_ms_by_cluster": one_tile,
+        "cache_1000_device_ms_by_cluster": serving,
+        "clusters_held_at_once": capacity,
+        "library_call": ("scaled_dot_product_attention(enable_gqa=True)"
+                         if gqa_note is None else gqa_note),
         "timed_shape": {"B": b, "T": 1, "Hq": hq, "Hkv": hkv, "S": s_len,
                         "D": d, "dtype": "bfloat16", "kv_valid": True,
                         "start": start.tolist()},
@@ -445,10 +548,14 @@ def check_flash_decode(gen):
 
 
 # The paged decode kernel (B9) is held to the decode rule above, by the dtype
-# of q and o. Its int8 pools add no term: kernel and plain version widen the
-# same int8 value times the same f32 scale in one fp32 multiply, so the scale
-# is folded into identical inputs and only the order of sums differs, as in
-# bf16 and fp32 pools. The negative control reads one visible page of one
+# of q and o. Its int8 pools add no term. The bf16 core (attn_decode_sm90.cuh)
+# multiplies the int8 values as they are (exact in bf16) and places the
+# scales per key: the k scale multiplies the key's fp32 score, which moves
+# one fp32 rounding from each element of k to the score; the v scale
+# multiplies p before p is rounded to bf16 for p.v, so the bf16 weights of
+# p.v are p * v_scale with the same 2^-9 rounding the bf16 rule already
+# allows for p. fp32 calls widen int8 * scale in one fp32 multiply, as the
+# plain version does. The negative control reads one visible page of one
 # row from the garbage page instead: that must break the rule many times over.
 PAGED_LOST_PAGE_MIN_USE = 10.0
 
@@ -502,7 +609,12 @@ def check_flash_decode_paged(gen):
         kw = dict(start=start, page_table=table, k_scale=ks, v_scale=vs,
                   window_size=window)
         o, lse = flash_decode_paged(q, k, v, **kw)
+        o2, lse2 = flash_decode_paged(q, k, v, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(
+                f"flash_decode_paged {tag} {dtype} int8={quant}: two runs "
+                f"differ")
         op, lsep = flash_decode_paged_plain(q, k, v, **kw)
         if sinks is not None:
             o, lse = apply_sinks(o, lse, sinks)
@@ -520,7 +632,8 @@ def check_flash_decode_paged(gen):
         cases.append({"case": tag, "dtype": str(dtype).split(".")[-1],
                       "pools": pools, "page_size": ps,
                       "shape": [b, t, hq, hkv, s_len, d], "max_abs_err": err,
-                      "tolerance_use": use, "lse_err": lerr})
+                      "tolerance_use": use, "lse_err": lerr,
+                      "two_runs_equal": True})
         return q, k, v, ks, vs, table, o
 
     lost = {}
@@ -529,6 +642,10 @@ def check_flash_decode_paged(gen):
             compare("step_ps16", dtype, quant, 1, 16, spread(1))
             compare("step_ps8", dtype, quant, 1, 8, spread(1))
             compare("step_ps4", dtype, quant, 1, 4, spread(1))
+            edges = torch.tensor(DECODE_EDGE_STARTS, device="cuda",
+                                 dtype=torch.int32)
+            compare("step_edges_ps16", dtype, quant, 1, 16, edges)
+            compare("step_edges_ps4", dtype, quant, 1, 4, edges)
             compare("window1024", dtype, quant, 1, 16, spread(1),
                     window=1024)
             compare("chunk4_sinks", dtype, quant, 4, 16, spread(4),
@@ -558,6 +675,10 @@ def check_flash_decode_paged(gen):
             "step_timed", torch.bfloat16, quant, 1, 16, start)
         kw = dict(start=start, page_table=table, k_scale=ks, v_scale=vs)
         ms = time_ms(lambda: flash_decode_paged(q, k, v, **kw), iters=50)
+        dev_ms, dev_all_ms, per_call = device_time(
+            lambda: flash_decode_paged(q, k, v, **kw), DECODE_KERNEL_TAG,
+            iters=50)
+        sweep = cluster_sweep(lambda: flash_decode_paged(q, k, v, **kw))
         plain_ms = time_ms(lambda: flash_decode_paged_plain(q, k, v, **kw),
                            iters=5)
         pos = torch.arange(s_len, device="cuda")[None, :]
@@ -584,7 +705,10 @@ def check_flash_decode_paged(gen):
             kv_itemsize=1 if quant else 2, quant=quant) + b * 4
         flops = 4.0 * hq * d * float((start.cpu().to(torch.int64) + 1).sum())
         timed["int8" if quant else "bfloat16"] = {
-            "ms": ms, "plain_ms": plain_ms, "library_chain_ms": chain_ms,
+            "ms": ms, "device_ms": dev_ms,
+            "device_ms_all_kernels": dev_all_ms, "kernels_per_call": per_call,
+            "cluster_sweep_device_ms": sweep,
+            "plain_ms": plain_ms, "library_chain_ms": chain_ms,
             "library_chain_max_abs_diff": chain_err,
             "bytes": nbytes, "flops": flops,
             "bound_ms": 1e3 * max(flops / H100_BF16_FLOPS,
@@ -600,16 +724,20 @@ def check_flash_decode_paged(gen):
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "max_abs_err_int8": worst["int8"],
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": None,
         "library_chain_ms": main["library_chain_ms"],
         "ms_int8": timed["int8"]["ms"],
+        "device_ms_int8": timed["int8"]["device_ms"],
         "bound_ms_int8": timed["int8"]["bound_ms"],
     }, {
         "cases": cases, "tolerance": TOLERANCE,
-        "int8_rule": "the rule of q's dtype; int8 pools add no term",
+        "int8_rule": ("the rule of q's dtype; int8 pools add no term (k "
+                      "scale on the score, v scale on p before its bf16 "
+                      "rounding)"),
         "lost_page_tolerance_use": lost,
         "lost_page_min_use": PAGED_LOST_PAGE_MIN_USE,
         "timed": timed,
@@ -2304,6 +2432,11 @@ def profile_decode_steps(model, batch=8, steps=4):
             device_busy_ms_per_step=busy_ms,
             device_idle_share=max(0.0, 1.0 - busy_ms / (1e3 * wall / steps)),
             device_kernels_per_step=n_kernels / steps,
+            # the decode kernels of a step by name: one per layer, and no
+            # split combine, is the one-launch contract of the wrappers
+            decode_kernels_per_step={
+                e.key[:72]: e.count / steps for e in kernels
+                if DECODE_KERNEL_TAG in e.key},
             top_device_ops=[
                 {"name": e.key[:60],
                  "ms_per_step": e.self_device_time_total / 1e3 / steps,
@@ -3469,6 +3602,19 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cp-worker"]:
         cp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--decode-only"]:
+        # the decode kernels alone, then (without "kernels") the serving
+        # phases: python3 chip_smoke.py --decode-only [kernels]
+        print(phase_device(), flush=True)
+        phase_build()
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        k8, detail8 = check_flash_decode(gen)
+        say(phase="kernels", kernel="flash_decode", **detail8)
+        k9, detail9 = check_flash_decode_paged(gen)
+        say(phase="kernels", kernel="flash_decode_paged", **detail9)
+        if sys.argv[2:3] != ["kernels"]:
+            phase_full_width_paged(phase_full_width()[1])
+        say(kernels=[k8, k9])
     elif sys.argv[1:2] == ["--cp-only"]:
         # phase 9 alone: python3 chip_smoke.py --cp-only nccl 4
         print(phase_device(), flush=True)

@@ -32,11 +32,11 @@
 // [P, Hkv, page_size] and are dequantized as the tile is widened to fp32.
 //
 // Arithmetic is fp32 throughout (tiles are widened when they are loaded into
-// shared memory); the products run on the CUDA cores. This core serves every
-// float32 call (exact fp32 products) and the single-token decode step, which
-// is bound by memory traffic; bfloat16 calls with many query rows take the
-// tensor-core core in attn_mma.cuh, which shares AttnParams, the row
-// addressing, the masks and the combine kernel below.
+// shared memory); the products run on the CUDA cores. This core serves the
+// float32 calls (exact fp32 products); bfloat16 decode continuation chunks
+// take the tensor-core core in attn_mma.cuh, which shares AttnParams, the
+// row addressing, the masks and the combine kernel below, and the other
+// bfloat16 decode calls the cluster core in attn_decode_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

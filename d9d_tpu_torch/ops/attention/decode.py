@@ -10,9 +10,20 @@ int8 pools (``_paged_decode_kernel`` / ``_paged_decode_call``), both behind
 Dispatch: a tensor on the CPU takes the plain version
 (:func:`flash_decode_plain`, :func:`flash_decode_paged_plain`); a CUDA tensor
 launches the kernel or raises.
+
+Routes on the card (``csrc/flash_decode.cu``): every bf16 call with at most
+16 query rows per kv head (``g·T``; every serving step) and every bf16
+paged call take the cluster core (``csrc/attn_decode_sm90.cuh``): exactly
+one launch per call, the caller's ``start`` (0-dim or ``[B]`` int32) and
+``kv_valid`` (bool, uint8 or int32, with its row stride) read as they come,
+no split scratch (:func:`decode_cluster` sizes the clusters). fp32 calls and
+bf16 continuation chunks keep the grid.z key split of :func:`decode_split`
+(a second launch merges the splits) and take ``start`` as ``[B]`` int32 and
+``kv_valid`` as int32.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +33,12 @@ from d9d_tpu_torch.ops.attention.flash import NEG_BIG, _check_kernel_inputs
 # and never split below this many keys
 _TARGET_BLOCKS = 1024
 _MIN_SPLIT_KEYS = 128
+# the cluster core: add blocks to each cluster (up to 8, a portable cluster)
+# until about two blocks are resident on each of the H100's 132 SMs
+_CLUSTER_TARGET_BLOCKS = 256
+_MAX_CLUSTER = 8
+# key-validity types the cluster core reads as they come, and their widths
+_VALID_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1, torch.int32: 4}
 
 
 def _broadcast_start(start, b: int, device) -> torch.Tensor:
@@ -98,6 +115,102 @@ def decode_split(
     return -(-s // split_len), split_len
 
 
+def decode_cluster(b: int, hkv: int, rows: int, row_tile: int = 16,
+                   capacity: dict | None = None) -> int:
+    """Blocks per cluster (1, 2, 4 or 8) of the cluster core, from shapes
+    only (the write indices live on the device and are never read back):
+    double them until the ``b · hkv · ⌈rows / row_tile⌉`` clusters reach
+    about ``_CLUSTER_TARGET_BLOCKS`` blocks, then halve them while the
+    clusters outnumber what the card holds at once (``capacity[n]``, from
+    the library): a second wave pays the first tile's trip and the merge
+    again. Each block takes its share of its row's visible keys."""
+    clusters = b * hkv * -(-rows // row_tile)
+    n = 1
+    while n < _MAX_CLUSTER and clusters * n < _CLUSTER_TARGET_BLOCKS:
+        n *= 2
+    if capacity is not None:
+        while n > 1 and clusters > capacity[n]:
+            n //= 2
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(device: torch.device, paged: bool, kv_int8: bool,
+                     d: int) -> dict:
+    """``{n: clusters of n blocks the card holds at once}`` for the cluster
+    core of this mode (``d9d_flash_decode_max_clusters``), once per device."""
+    from d9d_tpu_torch.ops import kernel_lib
+
+    out = {}
+    with torch.cuda.device(device):
+        for n in (1, 2, 4, 8):
+            held = ctypes.c_int()
+            kernel_lib.check_launch(
+                kernel_lib.load().d9d_flash_decode_max_clusters(
+                    int(paged), int(kv_int8), d, n, ctypes.byref(held)),
+                "flash_decode cluster capacity query",
+            )
+            out[n] = held.value
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(code: int, rows: int, paged: bool) -> tuple[int, int]:
+    """``(query rows per block, split_len granularity)`` the library
+    reports for a call (``d9d_flash_decode_tiling``), once per dtype, row
+    count and mode; a granularity of 0 is the cluster core."""
+    from d9d_tpu_torch.ops import kernel_lib
+
+    row_tile, align = ctypes.c_int(), ctypes.c_int()
+    kernel_lib.check_launch(
+        kernel_lib.load().d9d_flash_decode_tiling(
+            code, rows, int(paged), ctypes.byref(row_tile),
+            ctypes.byref(align)),
+        "flash_decode tiling query",
+    )
+    return row_tile.value, align.value
+
+
+def _start_view(start, b: int, device) -> tuple[torch.Tensor, int]:
+    """The write index as the cluster core reads it: ``(int32 tensor,
+    element stride)`` — a 0-dim or ``[B]`` int32 tensor on ``device`` as it
+    is (stride 0 for one shared index), anything else converted once."""
+    if not (isinstance(start, torch.Tensor) and start.dtype == torch.int32
+            and start.device == device):
+        start = torch.as_tensor(start, device=device).to(torch.int32)
+    if start.ndim == 0:
+        return start, 0
+    if start.numel() == 1:
+        return start.reshape(()), 0
+    if start.shape != (b,):
+        raise ValueError(
+            f"flash_decode: start must be a scalar or [B]={b}, got "
+            f"{tuple(start.shape)}")
+    return start, start.stride(0)
+
+
+def _valid_view(kv_valid: torch.Tensor, b: int, s: int,
+                device) -> tuple[torch.Tensor, int, int]:
+    """``kv_valid [B, S]`` as the cluster core reads it: ``(tensor, bytes
+    per flag, row stride)`` — bool, uint8, int8 or int32 with contiguous
+    keys as it comes (the ``[B, 1, 1, S]`` mask's ``[:, 0, 0, :]`` view),
+    other types as a bool copy. The kernel copies flags 4 bytes at a time,
+    so one-byte flags whose rows do not start 4-byte aligned go as int32."""
+    if kv_valid.shape != (b, s):
+        raise ValueError(
+            f"flash_decode: kv_valid must be [B,S]={b, s}, "
+            f"got {tuple(kv_valid.shape)}"
+        )
+    kv = kv_valid.to(device)
+    if kv.dtype not in _VALID_BYTES:
+        kv = kv != 0
+    if kv.stride(-1) != 1:
+        kv = kv.contiguous()
+    if _VALID_BYTES[kv.dtype] == 1 and (kv.data_ptr() % 4 or kv.stride(0) % 4):
+        kv = kv.to(torch.int32)
+    return kv, _VALID_BYTES[kv.dtype], kv.stride(0)
+
+
 def flash_decode(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -143,46 +256,41 @@ def flash_decode(
         "flash_decode", {"q": q, "k_cache": k_cache, "v_cache": v_cache}, d
     )
     scale = softmax_scale if softmax_scale is not None else d**-0.5
-    offsets = _broadcast_start(start, b, q.device)
-
-    valid_ptr = None
-    if kv_valid is not None:
-        if kv_valid.shape != (b, s):
-            raise ValueError(
-                f"flash_decode: kv_valid must be [B,S]={b, s}, "
-                f"got {tuple(kv_valid.shape)}"
-            )
-        valid = (kv_valid.to(q.device) != 0).to(torch.int32).contiguous()
-        valid_ptr = valid.data_ptr()
+    rows = (hq // hkv) * t
+    row_tile, align = _tiling(code, rows, False)
+    valid_ptr, valid_bytes, valid_sb = None, 0, 0
+    o_part = lse_part = None
+    if align == 0:  # the cluster core: one launch, inputs as they come
+        offsets, offsets_stride = _start_view(start, b, q.device)
+        if kv_valid is not None:
+            valid, valid_bytes, valid_sb = _valid_view(kv_valid, b, s,
+                                                       q.device)
+            valid_ptr = valid.data_ptr()
+        n_splits, split_len = decode_cluster(
+            b, hkv, rows, row_tile,
+            cluster_capacity(q.device, False, False, d)), 0
+    else:
+        offsets, offsets_stride = _broadcast_start(start, b, q.device), 1
+        if kv_valid is not None:
+            valid = (_valid_view(kv_valid, b, s, q.device)[0] != 0).to(
+                torch.int32).contiguous()
+            valid_ptr, valid_bytes, valid_sb = valid.data_ptr(), 4, s
+        n_splits, split_len = decode_split(b, hkv, rows, s, row_tile, align)
+        if n_splits > 1:
+            o_part = torch.empty(
+                (b * hkv, n_splits, rows, d), dtype=torch.float32,
+                device=q.device)
+            lse_part = torch.empty(
+                (b * hkv, n_splits, rows), dtype=torch.float32,
+                device=q.device)
+    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
 
     from d9d_tpu_torch.ops import kernel_lib
 
-    lib = kernel_lib.load()
-    rows = (hq // hkv) * t
-    row_tile, align = ctypes.c_int(), ctypes.c_int()
-    kernel_lib.check_launch(
-        lib.d9d_flash_decode_tiling(
-            code, rows, ctypes.byref(row_tile), ctypes.byref(align)
-        ),
-        "flash_decode tiling query",
-    )
-    n_splits, split_len = decode_split(
-        b, hkv, rows, s, row_tile.value, align.value
-    )
-    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    o_part = lse_part = None
-    if n_splits > 1:
-        o_part = torch.empty(
-            (b * hkv, n_splits, rows, d), dtype=torch.float32, device=q.device
-        )
-        lse_part = torch.empty(
-            (b * hkv, n_splits, rows), dtype=torch.float32, device=q.device
-        )
-
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.d9d_flash_decode(
+        code = kernel_lib.load().d9d_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             o.data_ptr(), lse.data_ptr(), offsets.data_ptr(), valid_ptr,
             None if o_part is None else o_part.data_ptr(),
@@ -193,7 +301,8 @@ def flash_decode(
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
             float(scale), -1 if window_size is None else int(window_size),
-            n_splits, split_len, stream,
+            n_splits, split_len, offsets_stride, valid_bytes, valid_sb,
+            stream,
         )
     kernel_lib.check_launch(code, "flash_decode")
     flash_decode.launches += 1
@@ -342,33 +451,33 @@ def flash_decode_paged(
     n_pages = page_table.shape[1]
     s = n_pages * ps
     scale = softmax_scale if softmax_scale is not None else d**-0.5
-    offsets = _broadcast_start(start, b, q.device)
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    rows = (hq // hkv) * t
+    row_tile, align = _tiling(code, rows, True)
+    o_part = lse_part = None
+    if align == 0:  # the cluster core: one launch, inputs as they come
+        offsets, offsets_stride = _start_view(start, b, q.device)
+        n_splits, split_len = decode_cluster(
+            b, hkv, rows, row_tile,
+            cluster_capacity(q.device, True, bool(kv_int8), d)), 0
+    else:
+        offsets, offsets_stride = _broadcast_start(start, b, q.device), 1
+        n_splits, split_len = decode_split(b, hkv, rows, s, row_tile, align)
+        if n_splits > 1:
+            o_part = torch.empty(
+                (b * hkv, n_splits, rows, d), dtype=torch.float32,
+                device=q.device)
+            lse_part = torch.empty(
+                (b * hkv, n_splits, rows), dtype=torch.float32,
+                device=q.device)
+    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
 
     from d9d_tpu_torch.ops import kernel_lib
 
-    lib = kernel_lib.load()
-    rows = (hq // hkv) * t
-    row_tile, align = ctypes.c_int(), ctypes.c_int()
-    kernel_lib.check_launch(
-        lib.d9d_flash_paged_decode_tiling(
-            rows, ctypes.byref(row_tile), ctypes.byref(align)),
-        "flash_decode_paged tiling query",
-    )
-    n_splits, split_len = decode_split(
-        b, hkv, rows, s, row_tile.value, align.value)
-    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    o_part = lse_part = None
-    if n_splits > 1:
-        o_part = torch.empty(
-            (b * hkv, n_splits, rows, d), dtype=torch.float32, device=q.device)
-        lse_part = torch.empty(
-            (b * hkv, n_splits, rows), dtype=torch.float32, device=q.device)
-
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.d9d_flash_paged_decode(
+        code = kernel_lib.load().d9d_flash_paged_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
@@ -381,7 +490,7 @@ def flash_decode_paged(
             v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
             float(scale), -1 if window_size is None else int(window_size),
-            n_splits, split_len, stream,
+            n_splits, split_len, offsets_stride, stream,
         )
     kernel_lib.check_launch(code, "flash_decode_paged")
     flash_decode_paged.launches += 1
@@ -499,5 +608,7 @@ __all__ = [
     "gather_pages_heads_major_quant",
     "flash_decode_attention",
     "decode_split",
+    "decode_cluster",
+    "cluster_capacity",
     "flash_decode_bytes",
 ]

@@ -74,7 +74,10 @@ _SIGNATURES = {
         _L, _L, _L,                  # v strides (batch, head, slot)
         _L, _L, _L,                  # o strides (batch, token, head)
         _F, _I,                      # scale, window (-1 = none)
-        _I, _I,                      # n_splits, split_len
+        _I, _I,                      # n_splits (cluster core: blocks per
+                                     # cluster), split_len
+        _L, _I, _L,                  # offsets stride (0: shared), kv_valid
+                                     # bytes (1 or 4), kv_valid row stride
         _P,                          # stream
     ],
     "d9d_flash_paged_decode": [
@@ -90,7 +93,9 @@ _SIGNATURES = {
         _L, _L, _L,                  # v pool strides (page, head, slot)
         _L, _L, _L,                  # o strides (batch, token, head)
         _F, _I,                      # scale, window (-1 = none)
-        _I, _I,                      # n_splits, split_len
+        _I, _I,                      # n_splits (cluster core: blocks per
+                                     # cluster), split_len
+        _L,                          # offsets stride (0: shared)
         _P,                          # stream
     ],
     "d9d_moe_ffn": [
@@ -113,14 +118,14 @@ _ELEMENTWISE = {
 # host-side queries: no launch, same int status as the launchers
 _QUERIES = {
     "d9d_flash_decode_tiling": [
-        _I, _I,                      # dtype, query rows per kv head
+        _I, _I, _I,                  # dtype, query rows per kv head, paged
         ctypes.POINTER(_I),          # out: query rows per block
-        ctypes.POINTER(_I),          # out: granularity of split_len
+        ctypes.POINTER(_I),          # out: granularity of split_len (0: the
+                                     # cluster core, no split scratch)
     ],
-    "d9d_flash_paged_decode_tiling": [
-        _I,                          # query rows per kv head
-        ctypes.POINTER(_I),          # out: query rows per block
-        ctypes.POINTER(_I),          # out: granularity of split_len
+    "d9d_flash_decode_max_clusters": [
+        _I, _I, _I, _I,              # paged, kv_int8, head_dim, cluster size
+        ctypes.POINTER(_I),          # out: clusters the card holds at once
     ],
     "d9d_moe_ffn_tiling": [
         _I, _I, _I,                  # dtype, h, inter
