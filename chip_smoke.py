@@ -248,7 +248,11 @@ def check_flash_fwd(gen):
         v = _rand((b, t, hkv, d), dtype, gen)
         sinks = kw.pop("sinks", None)
         o, lse = flash_attention(q, k, v, **kw)
+        o2, lse2 = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(
+                f"flash_fwd {tag} {dtype}: two runs on the same inputs differ")
         op, lsep = flash_attention_plain(q, k, v, **kw)
         if sinks is not None:
             o, lse = apply_sinks(o, lse, sinks)
@@ -449,6 +453,9 @@ def check_flash_decode(gen):
     for dtype in (torch.bfloat16, torch.float32):
         compare("step", dtype, 1, spread(1))
         compare("step_edges", dtype, 1, edges)
+        # four new tokens a row: 16 rows a kv head, the cluster core's
+        # contiguous route for T > 1
+        compare("step_t4", dtype, 4, spread(4))
         compare("chunk64", dtype, 64, spread(64))
         _, _, _, o = compare("step_kv_valid", dtype, 1, spread(1),
                              kv_valid=valid)
@@ -517,8 +524,11 @@ def check_flash_decode(gen):
             lambda: F.scaled_dot_product_attention(
                 qh, kc, vc, attn_mask=mask, enable_gqa=True), iters=50)
 
-    nbytes = flash_decode_bytes(start, 1, b, hq, hkv, d, 2) + b * s_len * 4
-    flops = 4.0 * hq * d * float((start.cpu().to(torch.int64) + 1).sum())
+    # kv_valid is read at its own width, over each row's visible keys only
+    seen = float((start.cpu().to(torch.int64) + 1).sum())
+    nbytes = (flash_decode_bytes(start, 1, b, hq, hkv, d, 2)
+              + valid.element_size() * seen)
+    flops = 4.0 * hq * d * seen
     by_ops, by_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return {
         "name": "flash_decode", "route": "cuda",
@@ -3602,19 +3612,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cp-worker"]:
         cp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
-    elif sys.argv[1:2] == ["--decode-only"]:
-        # the decode kernels alone, then (without "kernels") the serving
-        # phases: python3 chip_smoke.py --decode-only [kernels]
-        print(phase_device(), flush=True)
-        phase_build()
-        gen = torch.Generator(device="cuda").manual_seed(1234)
-        k8, detail8 = check_flash_decode(gen)
-        say(phase="kernels", kernel="flash_decode", **detail8)
-        k9, detail9 = check_flash_decode_paged(gen)
-        say(phase="kernels", kernel="flash_decode_paged", **detail9)
-        if sys.argv[2:3] != ["kernels"]:
-            phase_full_width_paged(phase_full_width()[1])
-        say(kernels=[k8, k9])
     elif sys.argv[1:2] == ["--cp-only"]:
         # phase 9 alone: python3 chip_smoke.py --cp-only nccl 4
         print(phase_device(), flush=True)

@@ -82,7 +82,7 @@ struct DecodeParams {
   const int* offsets;    // write index of batch row b at offsets[b * offsets_stride]
   long long offsets_stride;  // 0: one index shared by every row
   const void* kv_valid;  // [B, S] key validity (nonzero = valid), or null
-  int kv_valid_bytes;    // 1 (bool / uint8) or 4 (int32)
+  int kv_valid_bytes;    // 1 (bool) or 4 (int32)
   long long kv_valid_sb; // row stride of kv_valid, in elements
   const int* page_table; // paged: [B, row_pages] int32 pool page ids
   int page_size;

@@ -123,7 +123,7 @@ extern "C" int d9d_flash_decode_tiling(int dtype, int rows, int paged,
 // contiguous. q/o are [B, T, Hq, D]-addressed, the caches [B, Hkv, S, D]-
 // addressed, lse contiguous [B, Hq, T] fp32; row b's write index is
 // offsets[b * offsets_stride] (int32; stride 0: one shared index), kv_valid
-// [B, S] is null or, read as it comes, kv_valid_bytes = 1 (bool / uint8) or
+// [B, S] is null or, read as it comes, kv_valid_bytes = 1 (bool) or
 // 4 (int32) wide with row stride kv_valid_sb (elements) and contiguous keys.
 // The cluster core (d9d_flash_decode_tiling reports split_align 0) takes
 // n_splits = blocks per cluster (1, 2, 4, 8), ignores split_len and needs no

@@ -15,7 +15,7 @@ Routes on the card (``csrc/flash_decode.cu``): every bf16 call with at most
 16 query rows per kv head (``g·T``; every serving step) and every bf16
 paged call take the cluster core (``csrc/attn_decode_sm90.cuh``): exactly
 one launch per call, the caller's ``start`` (0-dim or ``[B]`` int32) and
-``kv_valid`` (bool, uint8 or int32, with its row stride) read as they come,
+``kv_valid`` (bool or int32, with its row stride) read as they come,
 no split scratch (:func:`decode_cluster` sizes the clusters). fp32 calls and
 bf16 continuation chunks keep the grid.z key split of :func:`decode_split`
 (a second launch merges the splits) and take ``start`` as ``[B]`` int32 and
@@ -33,12 +33,8 @@ from d9d_tpu_torch.ops.attention.flash import NEG_BIG, _check_kernel_inputs
 # and never split below this many keys
 _TARGET_BLOCKS = 1024
 _MIN_SPLIT_KEYS = 128
-# the cluster core: add blocks to each cluster (up to 8, a portable cluster)
-# until about two blocks are resident on each of the H100's 132 SMs
-_CLUSTER_TARGET_BLOCKS = 256
-_MAX_CLUSTER = 8
 # key-validity types the cluster core reads as they come, and their widths
-_VALID_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1, torch.int32: 4}
+_VALID_BYTES = {torch.bool: 1, torch.int32: 4}
 
 
 def _broadcast_start(start, b: int, device) -> torch.Tensor:
@@ -115,23 +111,19 @@ def decode_split(
     return -(-s // split_len), split_len
 
 
-def decode_cluster(b: int, hkv: int, rows: int, row_tile: int = 16,
-                   capacity: dict | None = None) -> int:
+def decode_cluster(b: int, hkv: int, rows: int, capacity: dict,
+                   row_tile: int = 16) -> int:
     """Blocks per cluster (1, 2, 4 or 8) of the cluster core, from shapes
     only (the write indices live on the device and are never read back):
-    double them until the ``b · hkv · ⌈rows / row_tile⌉`` clusters reach
-    about ``_CLUSTER_TARGET_BLOCKS`` blocks, then halve them while the
-    clusters outnumber what the card holds at once (``capacity[n]``, from
-    the library): a second wave pays the first tile's trip and the merge
-    again. Each block takes its share of its row's visible keys."""
+    the largest n whose ``b · hkv · ⌈rows / row_tile⌉`` clusters the card
+    holds at once (``capacity[n]``, from the library), since a second wave
+    pays the first tile's trip and the merge again. Each block takes its
+    share of its row's visible keys."""
     clusters = b * hkv * -(-rows // row_tile)
-    n = 1
-    while n < _MAX_CLUSTER and clusters * n < _CLUSTER_TARGET_BLOCKS:
-        n *= 2
-    if capacity is not None:
-        while n > 1 and clusters > capacity[n]:
-            n //= 2
-    return n
+    for n in (8, 4, 2):
+        if clusters <= capacity[n]:
+            return n
+    return 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,9 +184,9 @@ def _start_view(start, b: int, device) -> tuple[torch.Tensor, int]:
 def _valid_view(kv_valid: torch.Tensor, b: int, s: int,
                 device) -> tuple[torch.Tensor, int, int]:
     """``kv_valid [B, S]`` as the cluster core reads it: ``(tensor, bytes
-    per flag, row stride)`` — bool, uint8, int8 or int32 with contiguous
-    keys as it comes (the ``[B, 1, 1, S]`` mask's ``[:, 0, 0, :]`` view),
-    other types as a bool copy. The kernel copies flags 4 bytes at a time,
+    per flag, row stride)`` — bool or int32 with contiguous keys as it
+    comes (the ``[B, 1, 1, S]`` mask's ``[:, 0, 0, :]`` view), other
+    types as a bool copy. The kernel copies flags 4 bytes at a time,
     so one-byte flags whose rows do not start 4-byte aligned go as int32."""
     if kv_valid.shape != (b, s):
         raise ValueError(
@@ -267,8 +259,8 @@ def flash_decode(
                                                        q.device)
             valid_ptr = valid.data_ptr()
         n_splits, split_len = decode_cluster(
-            b, hkv, rows, row_tile,
-            cluster_capacity(q.device, False, False, d)), 0
+            b, hkv, rows, cluster_capacity(q.device, False, False, d),
+            row_tile), 0
     else:
         offsets, offsets_stride = _broadcast_start(start, b, q.device), 1
         if kv_valid is not None:
@@ -458,8 +450,8 @@ def flash_decode_paged(
     if align == 0:  # the cluster core: one launch, inputs as they come
         offsets, offsets_stride = _start_view(start, b, q.device)
         n_splits, split_len = decode_cluster(
-            b, hkv, rows, row_tile,
-            cluster_capacity(q.device, True, bool(kv_int8), d)), 0
+            b, hkv, rows, cluster_capacity(q.device, True, bool(kv_int8), d),
+            row_tile), 0
     else:
         offsets, offsets_stride = _broadcast_start(start, b, q.device), 1
         n_splits, split_len = decode_split(b, hkv, rows, s, row_tile, align)

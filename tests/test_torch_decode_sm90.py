@@ -294,10 +294,15 @@ def test_block_tiles_cover_every_visible_key_once(t, window, n):
     ((2, 8), 32, 8), ((33, 8), 4, 1), ((4, 8), 4, 8),
 ])
 def test_decode_cluster_sizes_from_shapes(bh, rows, want):
+    """The largest cluster whose clusters the card holds at once, here
+    for a capacity of three blocks on each of 132 SMs (396, 198, 99 and 49
+    clusters of 1, 2, 4 and 8 blocks)."""
+    capacity = {1: 396, 2: 198, 4: 99, 8: 49}
     b, hkv = bh
-    n = tdec.decode_cluster(b, hkv, rows)
+    n = tdec.decode_cluster(b, hkv, rows, capacity)
     assert n == want
     assert n in (1, 2, 4, 8)
+    assert n == 8 or b * hkv * -(-rows // BM) > capacity[2 * n]
 
 
 @pytest.mark.parametrize("bh,rows,want", [
@@ -514,7 +519,7 @@ def test_start_is_read_as_it_comes():
     (torch.bool, 1), (torch.uint8, 1), (torch.int32, 4), (torch.int64, 1),
 ])
 def test_kv_valid_is_read_as_it_comes(dtype, nbytes):
-    """bool, uint8 and int32 validity go to the kernel as they are — a
+    """bool and int32 validity go to the kernel as they are — a
     [B, 1, 1, S] mask's ``[:, 0, 0, :]`` view with its row stride — other
     types as a bool copy."""
     mask = (torch.arange(12)[None, :] >= torch.tensor([0, 3])[:, None])
@@ -522,8 +527,11 @@ def test_kv_valid_is_read_as_it_comes(dtype, nbytes):
     got, width, row_stride = tdec._valid_view(view, 2, 12, view.device)
     assert width == nbytes and got.stride(-1) == 1
     assert row_stride == got.stride(0)
-    if dtype in (torch.bool, torch.uint8, torch.int32):
+    if dtype in (torch.bool, torch.int32):
+        assert got.dtype == dtype
         assert got.data_ptr() == view.data_ptr()
+    else:
+        assert got.dtype == torch.bool
     assert torch.equal(got != 0, mask)
 
 
