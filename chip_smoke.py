@@ -120,7 +120,8 @@ def time_ms(fn, iters=20, warmup=3):
 def device_time(fn, kernel_tag, iters=20, warmup=3):
     """Device time per call of ``fn`` read from ``torch.profiler`` over
     ``iters`` calls: ``(ms of the kernels whose name holds ``kernel_tag``,
-    ms of every kernel the calls launched, kernels per call by name)``.
+    ms of every kernel the calls launched, {kernel name: {"calls", "ms"}}
+    per call)``.
     Unlike :func:`time_ms` it leaves out the host time of the wrapper
     between launches; null where the profiler recorded no device activity."""
     from torch.autograd import DeviceType
@@ -140,7 +141,9 @@ def device_time(fn, kernel_tag, iters=20, warmup=3):
         return None, None, None
     own = sum(e.self_device_time_total for e in kernels
                if kernel_tag in e.key)
-    per_call = {e.key[:72]: e.count / iters for e in kernels}
+    per_call = {e.key[:72]: {"calls": e.count / iters,
+                             "ms": e.self_device_time_total / 1e3 / iters}
+                for e in kernels}
     return own / 1e3 / iters, total / 1e3 / iters, per_call
 
 
@@ -1512,6 +1515,10 @@ def _block_composition(gen):
 # y * probs to bf16 once: one bf16 step of the element. The negative
 # controls (a dropped tile, a tile given the wrong expert, a lost 64-wide
 # chunk of i), emulated with the plain version, must break the rule.
+# In bf16, B5 and B7 run on the sm_90 core (csrc/moe_ffn_sm90.cuh: the
+# hidden through device memory in bf16, the same rounding points), B6 on
+# the mma.sync body of csrc/moe_ffn.cu; tests/test_torch_moe_ffn_sm90.py
+# emulates the core's arithmetic on the CPU against the same rule.
 MOE_ATOL = {torch.float32: 1e-6, torch.bfloat16: 1e-6}
 MOE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MOE_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
@@ -1523,6 +1530,14 @@ MOE_TOLERANCE = {
     "rule": TOLERANCE["rule"],
 }
 MOE_KERNELS = ("moe_ffn_aligned", "moe_ffn_gather", "moe_ffn_gather_combine")
+# the MoE kernels' own device time: every kernel of csrc/moe_ffn*.cu is named
+# ffn_* (the sm_90 core's ffn_sm90_gate_up_* and ffn_sm90_down_*)
+MOE_KERNEL_TAG = "ffn_"
+MOE_SOURCES = {
+    "moe_ffn_aligned": "d9d_tpu_torch/csrc/moe_ffn_sm90.cuh",
+    "moe_ffn_gather": "d9d_tpu_torch/csrc/moe_ffn.cu",
+    "moe_ffn_gather_combine": "d9d_tpu_torch/csrc/moe_ffn_sm90.cuh",
+}
 
 
 def moe_tolerance_use(got, want, dtype):
@@ -1538,7 +1553,10 @@ def _moe_problem(gen, dtype, n, k, e, h, inter, route="router"):
     are of order 0.1-1 and a rounding step is visible. ``route``: "router" —
     softmax top-k of a random bf16 router, renormalized (as TopKRouter);
     "subset" — only experts 0..e/8-1 are chosen (most experts empty);
-    "one" — every pair on expert 3 (k must be 1)."""
+    "one" — every pair on expert 3 (k must be 1); "cyclic" — pair p on
+    expert p % e with random renormalized probs, so every group holds
+    n*k/e rows (one row per expert at n*k = e; exact tile multiples when
+    n*k/e is one)."""
     from d9d_tpu_torch.nn.moe import top_k_indices
     from d9d_tpu_torch.ops.moe import sort_tokens_by_expert
 
@@ -1554,6 +1572,10 @@ def _moe_problem(gen, dtype, n, k, e, h, inter, route="router"):
     if route == "one":
         ids = torch.full((n, k), 3, dtype=torch.int64, device="cuda")
         probs = torch.ones((n, k), device="cuda")
+    elif route == "cyclic":
+        ids = (torch.arange(n * k, device="cuda") % e).reshape(n, k)
+        probs = torch.rand((n, k), device="cuda", generator=gen) + 0.1
+        probs = probs / probs.sum(-1, keepdim=True)
     else:
         live = e if route == "router" else max(e // 8, k)
         wr = _rand((h, live), torch.bfloat16, gen) * h ** -0.5
@@ -1668,6 +1690,12 @@ def check_moe_ffn(gen):
         compare("one_expert", dtype, 256, 1, 128, 2048, 768, route="one")
         compare("nk_not_multiple_of_block_m", dtype, 100, 3, 16, 2048, 768)
         compare("example_widths", dtype, 1024, 2, 16, 128, 128)
+        # one row in every expert; every group exactly two 128-row tiles
+        # (eight of fp32's 32)
+        compare("one_row_per_expert", dtype, 16, 8, 128, 2048, 768,
+                route="cyclic")
+        compare("groups_on_block_m_multiples", dtype, 4096, 8, 128, 2048,
+                768, route="cyclic")
     compare("timed_fp32", torch.float32, 4096, 8, 128, 2048, 768)
     x, w, probs, sort, meta, args, fns = compare(
         "timed", torch.bfloat16, 4096, 8, 128, 2048, 768)
@@ -1713,38 +1741,66 @@ def check_moe_ffn(gen):
 
     kernels = []
     timed = {}
+    per_call = {}
+    # the bound on the layout of 64-row tiles, beside the one taken
+    meta64 = mf.aligned_metadata(sort, e, 64)
     for name in MOE_KERNELS:
         kern, plain = fns[name]
         pos, kw = args[name]
-        ms = time_ms(lambda: kern(*pos, **kw), iters=10, warmup=2)
+
+        def call():
+            return kern(*pos, **kw)
+
+        ms = time_ms(call, iters=10, warmup=2)
+        dev_ms, dev_all_ms, per_call[name] = device_time(
+            call, MOE_KERNEL_TAG, iters=10, warmup=1)
         plain_ms = time_ms(lambda: plain(*pos, **kw), iters=2, warmup=1)
         work = _moe_work(name, n, k, h, inter, meta, sort, torch.bfloat16)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, **work}
+        bound64 = _moe_work(name, n, k, h, inter, meta64, sort,
+                            torch.bfloat16)["bound_ms"]
+        timed[name] = {"ms": ms, "device_ms": dev_ms,
+                       "device_ms_all_kernels": dev_all_ms,
+                       "plain_ms": plain_ms, "bound_ms_at_block_m_64": bound64,
+                       **work}
     chain_ms, chain_info = _moe_library_chain(x, w, probs, sort)
     for name, line in (("moe_ffn_aligned", 371), ("moe_ffn_gather", 438),
                        ("moe_ffn_gather_combine", 475)):
         t = timed[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "d9d_tpu_torch/csrc/moe_ffn.cu",
+            "source": MOE_SOURCES[name],
             "replaces": f"d9d_tpu/ops/moe_pallas.py:{line}",
             "max_abs_err": worst[name][torch.bfloat16],
             "max_abs_err_fp32": worst[name][torch.float32],
             "tolerance_use": worst_use[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_ms_all_kernels": t["device_ms_all_kernels"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_ms_at_block_m_64": t["bound_ms_at_block_m_64"],
             "library_ms": None, "library_chain_ms": chain_ms,
         })
+    bm = meta.pair_src.numel() // meta.gid.numel()
+    real_tiles = int((meta.pair_src[::bm] >= 0).sum())
     return kernels, {
         "cases": cases, "tolerance": MOE_TOLERANCE,
         "negative_controls": controls,
         "gather_combine_repeat": combine_repeat,
         "timed_shape": {"N": n, "K": k, "E": e, "h": h, "i": inter,
-                        "dtype": "bfloat16", "m_pad": meta.m_pad,
+                        "dtype": "bfloat16", "block_m": bm,
+                        "m_pad": meta.m_pad, "m_pad_at_block_m_64": meta64.m_pad,
+                        "tiles": meta.gid.numel(), "real_tiles": real_tiles,
+                        "rows_computed": real_tiles * bm,
+                        "pad_rows_computed": real_tiles * bm - n * k,
                         "pairs": n * k,
                         "experts_used": int((sort.group_sizes > 0).sum())},
+        "kernels_per_call": per_call,
         "ms_is": "the wrapper: aligned on a prepared aligned buffer; "
                  "gather_combine includes its fp32 zero fill and cast",
+        "device_ms_is": "torch.profiler: the ffn_* kernels' own device time "
+                        "per call (B5, B7: the sm_90 core's gate-up and down "
+                        "launches); device_ms_all_kernels adds the wrapper's "
+                        "other launches (B7's zero fill and cast)",
         "library_ms_is": "null: no single PyTorch call computes a grouped "
                          "SwiGLU FFN",
         "library_chain": chain_info,
@@ -2593,10 +2649,12 @@ def phase_small_e2e_train():
         tolerance=tol, counters=on_card, counters_fused=on_card_fused)
 
 
-def profile_train_step(trainer, raw_batch):
+def profile_train_step(trainer, raw_batch, kernel_tag=None):
     """Where a full-width train step spends its time: one
     ``Trainer.run_step`` under ``torch.profiler`` (after the main path's
-    counters were read), and one without it for the wall time."""
+    counters were read), and one without it for the wall time.
+    ``kernel_tag``: also list every kernel whose name holds it, in or out
+    of the top ten."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2626,6 +2684,15 @@ def profile_train_step(trainer, raw_batch):
                 {"name": e.key[:60], "ms_per_step": e.self_device_time_total / 1e3,
                  "calls_per_step": e.count} for e in top[:10]],
         )
+        if kernel_tag is not None:
+            out["tagged_device_ops"] = {
+                "tag": kernel_tag,
+                "ms_per_step": sum(e.self_device_time_total for e in top
+                                   if kernel_tag in e.key) / 1e3,
+                "ops": [{"name": e.key[:60],
+                         "ms_per_step": e.self_device_time_total / 1e3,
+                         "calls_per_step": e.count}
+                        for e in top if kernel_tag in e.key]}
     return out
 
 
@@ -2913,7 +2980,8 @@ def phase_full_width_train_moe():
         peak_memory_bytes=torch.cuda.max_memory_allocated(), counters=got,
         per_step={"moe_kernel_launches": got["moe_ffn_aligned"] / steps,
                   "moe_readbacks": got["moe_readbacks"] / steps})
-    say(phase="profile", **profile_train_step(trainer, data.batches[steps]))
+    say(phase="profile", **profile_train_step(trainer, data.batches[steps],
+                                              kernel_tag=MOE_KERNEL_TAG))
     del trainer
     gc.collect()
     torch.cuda.empty_cache()

@@ -2,15 +2,17 @@
 // layout, hand-written for sm_90a. Three kernels, one per TPU kernel of
 // d9d_tpu/ops/moe_pallas.py:
 //
-//   ffn_aligned_*         replaces `_ffn_kernel` (through `_fused_ffn_call`):
-//                         rows come from the aligned activation buffer;
-//   ffn_gather_*          replaces `_ffn_gather_kernel` (`_fused_gather_call`):
-//                         each tile gathers its rows from x [N, h] by
-//                         pair_src, so the aligned buffer never exists;
-//   ffn_gather_combine_*  replaces `_ffn_gather_combine_kernel`
-//                         (`_fused_gather_combine_call`): the gather, plus
-//                         the combine — each row's prob-weighted output is
-//                         added straight into its token's row of out [N, h].
+//   ffn_aligned_f32, bf16 ffn_sm90_*_aligned (B5) replace `_ffn_kernel`
+//       (through `_fused_ffn_call`): rows come from the aligned activation
+//       buffer;
+//   ffn_gather_* (B6) replaces `_ffn_gather_kernel` (`_fused_gather_call`):
+//       each tile gathers its rows from x [N, h] by pair_src, so the
+//       aligned buffer never exists;
+//   ffn_gather_combine_f32, bf16 ffn_sm90_gate_up_gather +
+//       ffn_sm90_down_combine (B7) replace `_ffn_gather_combine_kernel`
+//       (`_fused_gather_combine_call`): the gather, plus the combine — each
+//       row's prob-weighted output is added straight into its token's row
+//       of out [N, h].
 //
 // Every tile of block_m rows belongs to ONE expert (the groups are padded
 // to block_m multiples), and computes
@@ -24,10 +26,16 @@
 // tensor-core rate) against 1.2 GB of bf16 expert weights that must be read
 // at least once plus the rows in and out (0.4-0.5 ms at 3.35 TB/s).
 //
-// Design. The TPU kernel keeps a [block_m, h] row tile and one expert's
-// three weight blocks resident in VMEM (3*h*i values, ~19 MB double-
-// buffered at these widths); a Hopper block has 227 KB of shared memory.
-// So a block owns one tile and runs two phases:
+// The bfloat16 aligned and gather + combine kernels (B5, B7) run on the
+// Hopper core of moe_ffn_sm90.cuh: wgmma fed by TMA, 128-row tiles, two
+// launches a call with the hidden in device memory; bf16 takes block_m =
+// 128. The bodies below run the bfloat16 gather kernel (B6) and every
+// float32 kernel.
+//
+// Design of these bodies. The TPU kernel keeps a [block_m, h] row tile and
+// one expert's three weight blocks resident in VMEM (3*h*i values, ~19 MB
+// double-buffered at these widths); a Hopper block has 227 KB of shared
+// memory. So a block owns one tile and runs two phases:
 //   1. for each 64-wide chunk of i, stream A and the Wg/Wu chunk in k-slices
 //      of h (cp.async, two stages), accumulate g and u, and write
 //      silu(g) * u, rounded to the compute dtype, into a [block_m, i]
@@ -37,7 +45,8 @@
 //      (or, for the combine kernel, atomicAdd into a zeroed fp32 [N, h]).
 // No product is computed twice and the hidden never goes to device memory.
 // bfloat16 multiplies on the tensor cores (mma.sync.m16n8k16, fragments by
-// ldmatrix, helpers of attn_mma.cuh) with block_m = 64; float32 multiplies
+// ldmatrix, helpers of attn_mma.cuh) over 64 rows — B6 runs two blocks on
+// each 128-row tile of the bf16 layout, one per half; float32 multiplies
 // in exact fp32 FMAs on the CUDA cores (the exactness path of the parity
 // chain) with block_m = 32, so that its fp32 hidden tile fits.
 //
@@ -52,10 +61,11 @@
 // output dtype).
 //
 // Domain: h and i multiples of 64, and the hidden tile plus two stages of
-// operand slices within 227 KB (i <= 1536 in bf16). d9d_moe_ffn_tiling
-// reports block_m and refuses shapes outside the domain; the launcher
-// refuses them too.
+// operand slices within 227 KB (i <= 1536 in bf16, for B6). The sm_90
+// core takes every such shape. d9d_moe_ffn_tiling reports block_m and
+// refuses shapes outside the domain; the launcher refuses them too.
 #include "attn_mma.cuh"
+#include "moe_ffn_sm90.cuh"
 
 using namespace d9d;
 
@@ -79,6 +89,8 @@ struct FfnParams {
   const void* wd;        // [E, i, h]
   void* out;             // aligned/gather: [m_pad, h]; combine: fp32 [N, h]
   int h, inter, top_k;
+  int tile_shift;        // log2(layout tile / body tile): a block's expert
+                         // is gid[blockIdx.x >> tile_shift]
 };
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
@@ -146,6 +158,8 @@ inline size_t bf16_smem_bytes(int inter) {
 
 template <int MODE>
 __device__ void ffn_bf16_body(const FfnParams& p) {
+  static_assert(MODE == MODE_GATHER,
+                "bf16 B5 and B7 run on the sm_90 core (moe_ffn_sm90.cuh)");
   using bf16 = __nv_bfloat16;
   constexpr int BM = BF_BM, KC = BF_KC, AP = BF_AP, WP = BF_WP;
   const int tile = blockIdx.x;
@@ -168,7 +182,7 @@ __device__ void ffn_bf16_body(const FfnParams& p) {
   const int grp = lane >> 2;
   const int tig = lane & 3;
 
-  const int e = p.gid[tile];
+  const int e = p.gid[tile >> p.tile_shift];
   const bf16* xa = static_cast<const bf16*>(p.a);
   const long long w_off = (long long)e * p.h * p.inter;
   const bf16* wg = static_cast<const bf16*>(p.wg) + w_off;
@@ -302,30 +316,19 @@ __device__ void ffn_bf16_body(const FfnParams& p) {
       }
       __syncthreads();
     }
-    // epilogue: scale by the row's prob; store, or add into the token's row
+    // epilogue: scale by the row's prob and store
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = rw * 16 + grp + 8 * hh;
       const float pr = row_prob[row];
       const int col = c2 * NC + cw * 32 + tig * 2;
-      if (MODE == MODE_COMBINE) {
-        const int tok = row_tok[row];
-        if (tok < 0) continue;
-        float* o = static_cast<float*>(p.out) + (long long)tok * p.h + col;
+      bf16* o = static_cast<bf16*>(p.out) +
+                ((long long)tile * BM + row) * p.h + col;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          atomicAdd(o + nt * 8, acc[nt][2 * hh] * pr);
-          atomicAdd(o + nt * 8 + 1, acc[nt][2 * hh + 1] * pr);
-        }
-      } else {
-        bf16* o = static_cast<bf16*>(p.out) +
-                  ((long long)tile * BM + row) * p.h + col;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) =
-              __floats2bfloat162_rn(acc[nt][2 * hh] * pr,
-                                    acc[nt][2 * hh + 1] * pr);
-      }
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) =
+            __floats2bfloat162_rn(acc[nt][2 * hh] * pr,
+                                  acc[nt][2 * hh + 1] * pr);
     }
   }
 }
@@ -365,7 +368,7 @@ __device__ void ffn_f32_body(const FfnParams& p) {
   const int tid = threadIdx.x;
   const int r = tid >> 3;
   const int cg = tid & 7;
-  const int e = p.gid[tile];
+  const int e = p.gid[tile >> p.tile_shift];
   const float* xa = static_cast<const float*>(p.a);
   const long long w_off = (long long)e * p.h * p.inter;
   const float* wg = static_cast<const float*>(p.wg) + w_off;
@@ -482,16 +485,11 @@ __device__ void ffn_f32_body(const FfnParams& p) {
 }
 
 // ---------------------------------------------------------------------------
-// the three kernels (one per TPU kernel), in each dtype
+// the kernels on these bodies: the three in float32, B6 in bfloat16 (B5
+// and B7 in bfloat16 are the sm_90 core's)
 
-__global__ void __launch_bounds__(NT) ffn_aligned_bf16(const FfnParams p) {
-  ffn_bf16_body<MODE_ALIGNED>(p);
-}
 __global__ void __launch_bounds__(NT) ffn_gather_bf16(const FfnParams p) {
   ffn_bf16_body<MODE_GATHER>(p);
-}
-__global__ void __launch_bounds__(NT) ffn_gather_combine_bf16(const FfnParams p) {
-  ffn_bf16_body<MODE_COMBINE>(p);
 }
 __global__ void __launch_bounds__(NT) ffn_aligned_f32(const FfnParams p) {
   ffn_f32_body<MODE_ALIGNED>(p);
@@ -512,11 +510,13 @@ bool in_domain(int dtype, int h, int inter) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Rows per tile (block_m) of the kernels
-// for this dtype; cudaErrorInvalidValue for (h, inter) outside the domain.
+// dtype: 0 = float32, 1 = bfloat16. Rows per tile (block_m) of the layout
+// the kernels take in this dtype (bf16: the sm_90 core's 128; B6 runs its
+// 64-row body on each half); cudaErrorInvalidValue for (h, inter) outside
+// the domain.
 extern "C" int d9d_moe_ffn_tiling(int dtype, int h, int inter, int* block_m) {
   if (!in_domain(dtype, h, inter)) return (int)cudaErrorInvalidValue;
-  *block_m = dtype == 1 ? BF_BM : F_BM;
+  *block_m = dtype == 1 ? sm90::BM : F_BM;
   return 0;
 }
 
@@ -525,18 +525,30 @@ extern "C" int d9d_moe_ffn_tiling(int dtype, int h, int inter, int* block_m) {
 // or x [N, h]; probs: fp32 [n_tiles * block_m] (kernel 0) or [N * K];
 // gid: int32 [n_tiles]; pair_src: int32 [n_tiles * block_m]; wg, wu:
 // [E, h, inter]; wd: [E, inter, h]; out: [n_tiles * block_m, h] in the
-// inputs' dtype (kernels 0, 1) or a ZEROED fp32 [N, h] (kernel 2). Launches
-// on `stream`, allocates nothing, never synchronizes.
+// inputs' dtype (kernels 0, 1) or a ZEROED fp32 [N, h] (kernel 2); hidden:
+// bf16 [n_tiles * block_m, inter] scratch of bf16 kernels 0 and 2 (their
+// two launches pass the hidden through it), null otherwise. Launches on
+// `stream` (bf16 kernels 0 and 2: two launches, each checked), allocates
+// nothing, never synchronizes.
 extern "C" int d9d_moe_ffn(const void* a, const void* probs, const void* gid,
                            const void* pair_src, const void* wg, const void* wu,
-                           const void* wd, void* out, int kernel, int n_tiles,
-                           int h, int inter, int top_k, int dtype,
-                           void* stream) {
+                           const void* wd, void* out, void* hidden, int kernel,
+                           int n_tiles, int num_experts, int h, int inter,
+                           int top_k, int dtype, void* stream) {
   if (!in_domain(dtype, h, inter) || n_tiles < 0 || top_k <= 0 ||
-      kernel < 0 || kernel > 2) {
+      num_experts <= 0 || kernel < 0 || kernel > 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && kernel != 1) {
+    if (hidden == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)sm90::ffn(kernel == 2, a, static_cast<const float*>(probs),
+                          static_cast<const int*>(gid),
+                          static_cast<const int*>(pair_src), wg, wu, wd,
+                          hidden, out, n_tiles, num_experts, h, inter, top_k,
+                          st);
+  }
   FfnParams p{};
   p.a = a;
   p.probs = static_cast<const float*>(probs);
@@ -549,15 +561,16 @@ extern "C" int d9d_moe_ffn(const void* a, const void* probs, const void* gid,
   p.h = h;
   p.inter = inter;
   p.top_k = top_k;
-  static void (*const bf16_kernels[3])(const FfnParams) = {
-      ffn_aligned_bf16, ffn_gather_bf16, ffn_gather_combine_bf16};
   static void (*const f32_kernels[3])(const FfnParams) = {
       ffn_aligned_f32, ffn_gather_f32, ffn_gather_combine_f32};
-  auto fn = dtype == 1 ? bf16_kernels[kernel] : f32_kernels[kernel];
+  // bf16 here is B6 alone: its 64-row body on each half of a 128-row tile
+  auto fn = dtype == 1 ? ffn_gather_bf16 : f32_kernels[kernel];
   const size_t smem = dtype == 1 ? bf16_smem_bytes(inter) : f32_smem_bytes(inter);
+  p.tile_shift = dtype == 1 ? 1 : 0;
+  static_assert(sm90::BM == 2 * BF_BM, "B6 runs two 64-row bodies a tile");
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<n_tiles, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  fn<<<n_tiles << p.tile_shift, NT, smem, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@ Counterpart of ``d9d_tpu/ops/moe_pallas.py``: ``AlignedMeta`` /
 ``_ffn_gather_kernel``, ``_ffn_gather_combine_kernel`` through their
 ``_fused_*_call``), ``_reference_apply``, the ``custom_vjp``
 ``fused_moe_ffn`` and ``fused_moe_ffn_apply``. The kernels themselves are
-``d9d_tpu_torch/csrc/moe_ffn.cu``.
+``d9d_tpu_torch/csrc/moe_ffn.cu``; in bfloat16 the aligned (B5) and the
+gather + combine (B7) kernels run on its Hopper core
+``csrc/moe_ffn_sm90.cuh``: two device kernels a call (gate-up, then down)
+that pass the hidden through a bf16 ``[m_pad, i]`` buffer the wrapper
+allocates. Their launch counters count calls.
 
 The layout: expert groups of the expert-sorted (token, k) pairs are padded
 to ``block_m`` multiples, so every tile of ``block_m`` rows belongs to ONE
@@ -257,34 +261,43 @@ def _no_kernel(name, device):
 
 def _launch(name, kernel, rows, probs, gid, pair_src, gate_w, up_w, down_w,
             out, top_k):
-    """One launch of ``d9d_moe_ffn`` on checked tensors; raises on a launch
-    error. Counts nothing: each wrapper counts its own launches."""
+    """One call of ``d9d_moe_ffn`` on checked tensors; raises on a launch
+    error. In bf16, kernels 0 (B5) and 2 (B7) run the sm_90 core's two
+    launches through a hidden buffer allocated here and dropped after the
+    call. Counts nothing: each wrapper counts its own calls."""
     from d9d_tpu_torch.ops import kernel_lib
 
     code = check_ffn_inputs(name, rows, gate_w, up_w, down_w, probs, gid,
                             pair_src)
-    h, inter = gate_w.shape[1], gate_w.shape[2]
+    e, h, inter = gate_w.shape
     bm = _layout_block_m(gid, pair_src)
     if bm != kernel_block_m(rows.dtype, h, inter):
         raise ValueError(
             f"{name}: layout of {bm}-row tiles; the kernel takes "
             f"{kernel_block_m(rows.dtype, h, inter)} in {rows.dtype}")
+    hidden = None
+    if rows.dtype == torch.bfloat16 and kernel != 1:
+        hidden = torch.empty((pair_src.shape[0], inter), dtype=rows.dtype,
+                             device=rows.device)
     lib = kernel_lib.load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.d9d_moe_ffn(
             rows.data_ptr(), probs.data_ptr(), gid.data_ptr(),
             pair_src.data_ptr(), gate_w.data_ptr(), up_w.data_ptr(),
-            down_w.data_ptr(), out.data_ptr(), kernel, gid.shape[0], h, inter,
-            top_k, code, stream)
+            down_w.data_ptr(), out.data_ptr(),
+            None if hidden is None else hidden.data_ptr(), kernel,
+            gid.shape[0], e, h, inter, top_k, code, stream)
     kernel_lib.check_launch(err, name)
 
 
 def moe_ffn_aligned(a, probs, gid, pair_src, gate_w, up_w, down_w):
     """Aligned kernel (B5) → ``y [m_pad, h]`` (see
-    :func:`moe_ffn_aligned_plain`). CUDA tensors launch kernel 0 of
-    ``d9d_moe_ffn``; ``pair_src`` tells it which tiles are all padding.
-    Counter: ``moe_ffn_aligned.launches`` (``plain_calls`` on the CPU)."""
+    :func:`moe_ffn_aligned_plain`). CUDA tensors run kernel 0 of
+    ``d9d_moe_ffn`` (bf16: the sm_90 core's gate-up and down launches);
+    ``pair_src`` tells it which tiles are all padding. Counter:
+    ``moe_ffn_aligned.launches``, one per call (``plain_calls`` on the
+    CPU)."""
     if a.device.type == "cpu":
         moe_ffn_aligned.plain_calls += 1
         return moe_ffn_aligned_plain(a, probs, gid, pair_src, gate_w, up_w,
@@ -343,12 +356,13 @@ def moe_ffn_gather_combine(x, probs_flat, gid, pair_src, gate_w, up_w,
                            down_w, *, top_k: int):
     """Gather + combine kernel (B7) → token-major ``[N, h]`` in ``x``'s
     dtype (see :func:`moe_ffn_gather_combine_plain`). Kernel 2 of
-    ``d9d_moe_ffn`` adds each row's fp32 prob-weighted output into a zeroed
-    fp32 ``[N, h]`` buffer by ``atomicAdd``; one cast follows. The order of
+    ``d9d_moe_ffn`` (bf16: the sm_90 core's gate-up and down launches) adds
+    each row's fp32 prob-weighted output into a zeroed fp32 ``[N, h]``
+    buffer by atomic adds; one cast follows. The order of
     a token's K-sum is the order the atomics land, so the result may differ
     between runs in its last fp32 bits before the cast; the TPU kernel sums
     in expert order in the output dtype, the port rounds once. Counter:
-    ``moe_ffn_gather_combine.launches``."""
+    ``moe_ffn_gather_combine.launches``, one per call."""
     if x.device.type == "cpu":
         moe_ffn_gather_combine.plain_calls += 1
         return moe_ffn_gather_combine_plain(x, probs_flat, gid, pair_src,

@@ -269,7 +269,7 @@ def test_kernel_library_is_keyed_by_its_sources_and_never_built_on_import():
     kernel_lib.check_launch(0, "flash_attention")
     for name, argtypes in kernel_lib._SIGNATURES.items():
         assert (name.startswith("d9d_flash_") and len(argtypes) > 20
-                or name == "d9d_moe_ffn" and len(argtypes) == 15)
+                or name == "d9d_moe_ffn" and len(argtypes) == 17)
 
 
 def test_flash_bwd_wrapper_raises_for_a_non_cpu_non_cuda_tensor():
