@@ -23,8 +23,11 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    (dq, dk/dv and fused — bf16 on the tensor cores; every fused case run
    twice and required equal bit for bit, its dq being summed in a fixed
    order) and the three MoE expert-FFN kernels (aligned, gather,
-   gather+combine — the last read for its run-to-run spread), the last two
-   families with negative controls for their bf16 rules; the flash kernels
+   gather+combine, all three on the sm_90 core in bf16, two device kernels
+   a call; the gather kernel required equal bit for bit to the aligned one
+   on the same routing; the last read for its run-to-run spread; also at
+   one decode step of 8 tokens and at i = 1600), the last two families
+   with negative controls for their bf16 rules; the flash kernels
    also at Qwen3-30B-A3B's GQA group (g = 8) and the forward at the
    training shape (B=2, T=2048, causal) beside its bound and library call;
    the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
@@ -41,7 +44,9 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    (through the kernels) against the same weights on the CPU (through the
    plain versions): greedy tokens identical, logits within tolerance; the
    batcher against ``generate`` on the card; the paged batcher (fp32 and
-   int8 pools, prefix hits) on the card against the CPU. Training: 3 ``Trainer`` steps
+   int8 pools, prefix hits) on the card against the CPU; the same serving
+   paths for a narrow fp32 Qwen3-MoE model, once for each expert-FFN
+   kernel. Training: 3 ``Trainer`` steps
    of a narrow fp32 model on the card against 3 on the CPU, loss and grad
    norm per step within tolerance, and a step with the fused backward
    against the split one; the same for a narrow fp32 Qwen3-MoE model, once
@@ -55,7 +60,12 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    prefix) through the contiguous batcher and through
    ``ContinuousBatcher(page_size=16, prefix_cache=True)`` with bf16 and with
    int8 pools — tokens/s, prefix hits, pages in use, KV bytes per request,
-   and the share of greedy tokens equal to the contiguous batcher's;
+   and the share of greedy tokens equal to the contiguous batcher's; then
+   Qwen3-30B-A3B at full width and all 48 layers (random seeded bf16
+   weights drawn on the card): ``generate`` on a ragged batch with chunked
+   prefill once per expert-FFN kernel (aligned and gather tokens equal),
+   the same 12 requests through the contiguous and paged (bf16, int8)
+   batchers with the gather+combine kernel, and a profiled decode step;
 6. full width, training — Qwen3-8B widths at 8 of its 36 layers (fp32
    parameters, bf16 compute, full remat, AdamW): 6 ``Trainer.train`` steps
    with the split backward, a profiled step, then 2 steps of a fresh trainer
@@ -123,28 +133,45 @@ def device_time(fn, kernel_tag, iters=20, warmup=3):
     ms of every kernel the calls launched, {kernel name: {"calls", "ms"}}
     per call)``.
     Unlike :func:`time_ms` it leaves out the host time of the wrapper
-    between launches; null where the profiler recorded no device activity."""
+    between launches; null where the profiler recorded no device activity.
+    The profiler can miss the record of the first launch in its window, so
+    each window opens with a marker kernel (``torch.cuda._sleep``, left out
+    of the reading); a kernel whose record count is still not a whole number
+    of launches a call is profiled again, up to three windows. A kernel's
+    ms per call is its mean time a recorded launch times its launches a
+    call (the record count over ``iters``, rounded where it is at least one
+    half), so a missed record does not lower it; ``calls`` is the record
+    count over ``iters``, as read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels)
-    if total <= 0:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+        if all(e.count % iters == 0 for e in kernels):
+            break
+    if sum(e.self_device_time_total for e in kernels) <= 0:
         return None, None, None
-    own = sum(e.self_device_time_total for e in kernels
-               if kernel_tag in e.key)
-    per_call = {e.key[:72]: {"calls": e.count / iters,
-                             "ms": e.self_device_time_total / 1e3 / iters}
+
+    def ms_per_call(e):
+        launches = e.count / iters
+        if launches >= 0.5:  # a kernel of every call: whole launches
+            launches = round(launches)
+        return e.self_device_time_total / 1e3 / e.count * launches
+
+    per_call = {e.key[:72]: {"calls": e.count / iters, "ms": ms_per_call(e)}
                 for e in kernels}
-    return own / 1e3 / iters, total / 1e3 / iters, per_call
+    own = sum(ms_per_call(e) for e in kernels if kernel_tag in e.key)
+    return own, sum(ms_per_call(e) for e in kernels), per_call
 
 
 def max_err(a, b):
@@ -1515,10 +1542,11 @@ def _block_composition(gen):
 # y * probs to bf16 once: one bf16 step of the element. The negative
 # controls (a dropped tile, a tile given the wrong expert, a lost 64-wide
 # chunk of i), emulated with the plain version, must break the rule.
-# In bf16, B5 and B7 run on the sm_90 core (csrc/moe_ffn_sm90.cuh: the
-# hidden through device memory in bf16, the same rounding points), B6 on
-# the mma.sync body of csrc/moe_ffn.cu; tests/test_torch_moe_ffn_sm90.py
-# emulates the core's arithmetic on the CPU against the same rule.
+# In bf16, B5, B6 and B7 run on the sm_90 core (csrc/moe_ffn_sm90.cuh: the
+# hidden through device memory in bf16, the same rounding points; B6 is
+# B5's arithmetic on gathered rows and must give B5's bits);
+# tests/test_torch_moe_ffn_sm90.py emulates the core's arithmetic on the
+# CPU against the same rule.
 MOE_ATOL = {torch.float32: 1e-6, torch.bfloat16: 1e-6}
 MOE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MOE_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
@@ -1533,10 +1561,14 @@ MOE_KERNELS = ("moe_ffn_aligned", "moe_ffn_gather", "moe_ffn_gather_combine")
 # the MoE kernels' own device time: every kernel of csrc/moe_ffn*.cu is named
 # ffn_* (the sm_90 core's ffn_sm90_gate_up_* and ffn_sm90_down_*)
 MOE_KERNEL_TAG = "ffn_"
-MOE_SOURCES = {
-    "moe_ffn_aligned": "d9d_tpu_torch/csrc/moe_ffn_sm90.cuh",
-    "moe_ffn_gather": "d9d_tpu_torch/csrc/moe_ffn.cu",
-    "moe_ffn_gather_combine": "d9d_tpu_torch/csrc/moe_ffn_sm90.cuh",
+MOE_SOURCES = dict.fromkeys(MOE_KERNELS,
+                            "d9d_tpu_torch/csrc/moe_ffn_sm90.cuh")
+# the device kernels of one bf16 call of each wrapper, in launch order
+MOE_CORE_KERNELS = {
+    "moe_ffn_aligned": ("ffn_sm90_gate_up_aligned", "ffn_sm90_down_aligned"),
+    "moe_ffn_gather": ("ffn_sm90_gate_up_gather", "ffn_sm90_down_gather"),
+    "moe_ffn_gather_combine": ("ffn_sm90_gate_up_gather",
+                               "ffn_sm90_down_combine"),
 }
 
 
@@ -1589,14 +1621,18 @@ def _moe_problem(gen, dtype, n, k, e, h, inter, route="router"):
 def _moe_work(kernel, n, k, h, inter, meta, sort, dtype):
     """Operations and bytes each MoE kernel's work needs on this data: the
     real pairs' three products (6 M h i flops), the weights of the experts
-    that got a row, read once, the rows in and the output out once."""
+    that got a row, read once, the rows in and the output out once. The
+    aligned kernel's input is its M real rows and their probs: its pad rows
+    have prob 0 and no source, so the function never needs them (the core
+    reads no row of an all-padding tile); its whole [m_pad, h] output is
+    written."""
     el = torch.empty((), dtype=dtype).element_size()
     m = n * k
     used = int((sort.group_sizes > 0).sum())
     weights = 3 * used * h * inter * el
     idx = meta.pair_src.numel() * 4 + meta.gid.numel() * 4
     if kernel == "moe_ffn_aligned":
-        nbytes = weights + 2 * meta.m_pad * h * el + meta.m_pad * 4 + idx
+        nbytes = weights + m * h * el + m * 4 + meta.m_pad * h * el + idx
     elif kernel == "moe_ffn_gather":
         nbytes = weights + n * h * el + m * 4 + meta.m_pad * h * el + idx
     else:
@@ -1653,11 +1689,11 @@ def check_moe_ffn(gen):
                              (meta.pair_src[::meta.pair_src.numel()
                                             // meta.gid.numel()] < 0).sum()),
                          "empty_experts": int((sort.group_sizes == 0).sum())}}
-        outs = {}
+        outs, gots = {}, {}
         for name in MOE_KERNELS:
             kern, plain = fns[name]
             pos, kw = args[name]
-            got = kern(*pos, **kw)
+            got = gots[name] = kern(*pos, **kw)
             torch.cuda.synchronize()
             want = plain(*pos, **kw)
             err = max_err(got, want)
@@ -1679,6 +1715,15 @@ def check_moe_ffn(gen):
             use = moe_tolerance_use(comb.to(dtype),
                                     outs["moe_ffn_gather_combine"], dtype)
             row[f"{name}_combined_vs_combine_kernel"] = use
+        # B6 is B5's arithmetic on gathered rows: the same bits (bf16: the
+        # same core; fp32: the same body)
+        same = torch.equal(gots["moe_ffn_gather"], gots["moe_ffn_aligned"])
+        row["gather_equals_aligned_bitwise"] = same
+        if dtype == torch.bfloat16 and not same:
+            raise AssertionError(
+                f"moe_ffn_gather {tag}: differs from moe_ffn_aligned by "
+                f"{max_err(gots['moe_ffn_gather'], gots['moe_ffn_aligned'])}")
+        del gots
         cases.append(row)
         return x, w, probs, sort, meta, args, fns
 
@@ -1696,6 +1741,11 @@ def check_moe_ffn(gen):
                 route="cyclic")
         compare("groups_on_block_m_multiples", dtype, 4096, 8, 128, 2048,
                 768, route="cyclic")
+        # one decode step of the serving batch: 64 pairs, m_pad 16512 in
+        # bf16, at least 65 of its 129 tiles all padding
+        compare("decode_step", dtype, 8, 8, 128, 2048, 768)
+    # beyond the old bf16 B6 body's shared-memory cap (i <= 1536)
+    compare("i_1600", torch.bfloat16, 512, 8, 128, 2048, 1600)
     compare("timed_fp32", torch.float32, 4096, 8, 128, 2048, 768)
     x, w, probs, sort, meta, args, fns = compare(
         "timed", torch.bfloat16, 4096, 8, 128, 2048, 768)
@@ -1739,6 +1789,8 @@ def check_moe_ffn(gen):
                       "max_abs_of_output": float(first_run.float().abs().max())}
     del first_run
 
+    decode = _moe_decode_timing(gen, run_all)
+
     kernels = []
     timed = {}
     per_call = {}
@@ -1754,6 +1806,7 @@ def check_moe_ffn(gen):
         ms = time_ms(call, iters=10, warmup=2)
         dev_ms, dev_all_ms, per_call[name] = device_time(
             call, MOE_KERNEL_TAG, iters=10, warmup=1)
+        _check_core_kernels(name, per_call[name])
         plain_ms = time_ms(lambda: plain(*pos, **kw), iters=2, warmup=1)
         work = _moe_work(name, n, k, h, inter, meta, sort, torch.bfloat16)
         bound64 = _moe_work(name, n, k, h, inter, meta64, sort,
@@ -1795,10 +1848,11 @@ def check_moe_ffn(gen):
                         "pairs": n * k,
                         "experts_used": int((sort.group_sizes > 0).sum())},
         "kernels_per_call": per_call,
+        "decode_step": decode,
         "ms_is": "the wrapper: aligned on a prepared aligned buffer; "
                  "gather_combine includes its fp32 zero fill and cast",
         "device_ms_is": "torch.profiler: the ffn_* kernels' own device time "
-                        "per call (B5, B7: the sm_90 core's gate-up and down "
+                        "per call (the sm_90 core's gate-up and down "
                         "launches); device_ms_all_kernels adds the wrapper's "
                         "other launches (B7's zero fill and cast)",
         "library_ms_is": "null: no single PyTorch call computes a grouped "
@@ -1808,6 +1862,53 @@ def check_moe_ffn(gen):
                             "bytes": timed[n_]["bytes"]}
                        for n_ in MOE_KERNELS},
     }
+
+
+def _check_core_kernels(name, per_call):
+    """A bf16 call of ``name`` ran the sm_90 core's two kernels, exactly
+    once each, and no other expert-FFN kernel (null when the profiler saw
+    nothing)."""
+    if per_call is None:
+        return
+    # profiler keys are demangled signatures: d9d::sm90::<kernel>(...)
+    ffn = {k.split("(")[0].split("::")[-1]: v["calls"]
+           for k, v in per_call.items() if MOE_KERNEL_TAG in k}
+    want = MOE_CORE_KERNELS[name]
+    if sorted(ffn) != sorted(want) or any(c != 1 for c in ffn.values()):
+        raise AssertionError(
+            f"{name}: device kernels per call {ffn}, expected one each of "
+            f"{want}")
+
+
+def _moe_decode_timing(gen, run_all):
+    """The three bf16 kernels at one decode step of the serving batch (8
+    tokens, top-8 of 128 experts at Qwen3-30B-A3B widths): the wrapper loop's
+    ms, each kernel's device ms and the bound on this data."""
+    n, k, e, h, inter = 8, 8, 128, 2048, 768
+    x, w, probs, sort = _moe_problem(gen, torch.bfloat16, n, k, e, h, inter)
+    meta, args, fns = run_all(torch.bfloat16, x, w, probs, sort, e)
+    bm = meta.pair_src.numel() // meta.gid.numel()
+    out = {"shape": {"N": n, "K": k, "E": e, "h": h, "i": inter,
+                     "block_m": bm, "m_pad": meta.m_pad,
+                     "tiles": meta.gid.numel(),
+                     "real_tiles": int((meta.pair_src[::bm] >= 0).sum()),
+                     "experts_used": int((sort.group_sizes > 0).sum())}}
+    for name in MOE_KERNELS:
+        kern = fns[name][0]
+        pos, kw = args[name]
+
+        def call():
+            return kern(*pos, **kw)
+
+        ms = time_ms(call, iters=20, warmup=3)
+        dev_ms, dev_all_ms, per = device_time(call, MOE_KERNEL_TAG, iters=20)
+        _check_core_kernels(name, per)
+        out[name] = {"ms": ms, "device_ms": dev_ms,
+                     "device_ms_all_kernels": dev_all_ms,
+                     "kernels_per_call": per,
+                     **_moe_work(name, n, k, h, inter, meta, sort,
+                                 torch.bfloat16)}
+    return out
 
 
 def _moe_library_chain(x, w, probs, sort):
@@ -2215,6 +2316,153 @@ def phase_small_e2e():
         paged_batcher=paged_info, counters=on_card)
 
 
+MOE_FFN_VALUES = ("aligned", "gather", "gather_combine")
+
+
+def set_moe_ffn(model, moe_ffn):
+    """Point every MoE layer of ``model`` at one expert-FFN kernel."""
+    from d9d_tpu_torch.nn.moe import MoELayer
+
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            m.moe_ffn = moe_ffn
+
+
+def phase_small_e2e_moe():
+    """Serving a narrow fp32 Qwen3-MoE model on the card (flash, decode and
+    MoE kernels) against the same weights on the CPU (their plain versions),
+    once for each moe_ffn value: greedy tokens of ``generate`` identical,
+    teacher-forced logits within tolerance, the contiguous batcher's streams
+    identical, the paged batcher's too with fp32 pools (and equal to the
+    contiguous ones) and with int8 pools as a share of equal tokens, prefix
+    hits on both sides alike."""
+    from d9d_tpu_torch.loop import ContinuousBatcher, generate
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
+    from d9d_tpu_torch.nn.decode_flags import continuation_chunk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Qwen3MoeConfig(
+        vocab_ranges=(("default", 1024),), hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, moe_intermediate_size=128,
+        num_experts=8, num_experts_per_tok=2,
+    )
+    layers, dml = cfg.num_layers, 96
+    gpu = Qwen3MoeCausalLM(cfg, decode_max_length=dml, dtype=torch.float32,
+                           seed=7)
+    cpu = Qwen3MoeCausalLM(cfg, decode_max_length=dml, dtype=torch.float32,
+                           device="cpu", seed=7)
+    cpu.load_state_dict(gpu.state_dict())
+
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, 1024, (3, 40), generator=g)
+    lengths = torch.tensor([40, 17, 29])
+    kw = dict(max_new_tokens=12, prompt_lengths=lengths, prefill_chunk_size=16)
+    pos = torch.clamp(torch.arange(40)[None, :] - (40 - lengths)[:, None],
+                      min=0)
+    valid = (torch.arange(dml)[None, :] >= (40 - lengths)[:, None])[
+        :, None, None, :]
+
+    def forced(model):
+        """Teacher-forced logits: prefill, a continuation chunk, a step."""
+        dev = model.device
+        cache = model.init_cache(3)
+        i, p, m = ids.to(dev), pos.to(dev).to(torch.int32), valid.to(dev)
+        a = model.logits_last(i[:, :24], p[:, :24], mask=m, cache=cache)
+        with continuation_chunk():
+            b = model.logits_last(i[:, 24:39], p[:, 24:39], mask=m,
+                                  cache=cache)
+        c = model.logits_last(i[:, 39:], p[:, 39:], mask=m, cache=cache)
+        return torch.cat([a, b, c], dim=1).cpu()
+
+    prompts = [ids[0, :n].tolist() for n in (5, 9, 3, 12, 7)]
+    budgets = [6, 10, 4, 8, 12]
+
+    def serve(model, **bkw):
+        b = ContinuousBatcher(model, batch_size=2, chunk_size=4, **bkw)
+        rids = [b.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+        res = b.drain()
+        if b._kv is not None:
+            b._kv.check_invariants()
+        return [res[r] for r in rids], b
+
+    out = {}
+    for moe_ffn in MOE_FFN_VALUES:
+        set_moe_ffn(gpu, moe_ffn)
+        set_moe_ffn(cpu, moe_ffn)
+        name = f"moe_ffn_{moe_ffn}"
+        reset_counters(gpu)
+        got = generate(gpu, ids, **kw)
+        torch.cuda.synchronize()
+        on_card = read_counters(gpu)
+        # chunk 0 on flash_fwd, 2 continuation chunks and 11 steps on
+        # flash_decode; every model call through both MoE layers
+        want_counts = counts(flash_fwd=layers, flash_decode=layers * 13,
+                             **{name: layers * 14})
+        if on_card != want_counts:
+            raise AssertionError(
+                f"small MoE {moe_ffn}: counters {on_card}, expected "
+                f"{want_counts}")
+        want = generate(cpu, ids, **kw)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(
+                f"small MoE {moe_ffn}: greedy tokens differ\n{got.cpu()}\n"
+                f"{want}")
+        logit_err = max_err(forced(gpu), forced(cpu))
+        if logit_err > 1e-3:
+            raise AssertionError(
+                f"small MoE {moe_ffn}: logits differ by {logit_err}")
+
+        reset_counters(gpu)
+        card, b = serve(gpu)
+        torch.cuda.synchronize()
+        got_counts = read_counters(gpu)
+        steps = b.stats.device_steps
+        if got_counts != counts(flash_decode=steps * layers,
+                                **{name: steps * layers}):
+            raise AssertionError(
+                f"small MoE {moe_ffn} batcher: counters {got_counts}")
+        host, _ = serve(cpu)
+        if card != host:
+            raise AssertionError(
+                f"small MoE {moe_ffn} batcher: card {card} / CPU {host}")
+        contiguous = card
+
+        paged_info = {}
+        for quant in (None, "int8"):
+            reset_counters(gpu)
+            card, b = serve(gpu, page_size=4, kv_quant=quant)
+            torch.cuda.synchronize()
+            got_counts = read_counters(gpu)
+            steps = b.stats.device_steps
+            if got_counts != counts(flash_decode_paged=steps * layers,
+                                    **{name: steps * layers}):
+                raise AssertionError(
+                    f"small MoE {moe_ffn} paged {quant}: counters "
+                    f"{got_counts}")
+            host, hb = serve(cpu, page_size=4, kv_quant=quant)
+            hits = b._kv.prefix_hits
+            if hits < 1 or hb._kv.prefix_hits != hits:
+                raise AssertionError(
+                    f"small MoE {moe_ffn} paged {quant}: prefix hits "
+                    f"{hits}/{hb._kv.prefix_hits}")
+            n_tok = sum(len(x) for x in card)
+            share = sum(a == c for x, y in zip(card, host)
+                        for a, c in zip(x, y)) / n_tok
+            if quant is None and (card != host or card != contiguous):
+                raise AssertionError(
+                    f"small MoE {moe_ffn} paged: card {card} / CPU {host} / "
+                    f"contiguous {contiguous}")
+            paged_info[quant or "float32"] = {
+                "prefix_hits": hits, "card_vs_cpu_equal_tokens": share,
+                "counters": got_counts}
+        out[moe_ffn] = {"tokens_identical": True,
+                        "logits_max_abs_err": logit_err,
+                        "batcher_identical": True, "paged_batcher": paged_info,
+                        "generate_counters": on_card}
+    say(phase="small_e2e_moe", logits_tolerance=1e-3, **out)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: full width
 
@@ -2329,9 +2577,19 @@ PAGED_SHARED_PREFIX = 256
 PAGED_LATE = 5
 
 
-def paged_requests(vocab, seed=9):
+# the same shape of traffic with shorter prompts and budgets, for the MoE
+# model, whose decode step takes ~2.5x the dense one's: unrelated prompts of
+# at most 128 tokens, late shared tails of at most 64, 8 to 24 new tokens
+MOE_PAGED_TRAFFIC = dict(unrelated=(16, 128), late_tail=(16, 64),
+                         new=(8, 24))
+
+
+def paged_requests(vocab, seed=9, unrelated=(16, 512), late_tail=(16, 256),
+                   new=(16, 48)):
     """``[(prompt, max_new_tokens)]`` in arrival order: the shared prefix's
-    first request, 6 unrelated ones, then the 5 late shared ones."""
+    first request, 6 unrelated ones, then the 5 late shared ones. The
+    ranges bound the unrelated prompts' lengths, the late shared prompts'
+    tails and the budgets."""
     import random
 
     rnd = random.Random(seed)
@@ -2340,21 +2598,34 @@ def paged_requests(vocab, seed=9):
     def tail(lo, hi):
         return [rnd.randrange(vocab) for _ in range(rnd.randint(lo, hi))]
 
-    reqs = [(shared + tail(16, 16), rnd.randint(16, 48))]
-    reqs += [(tail(16, 512), rnd.randint(16, 48)) for _ in range(6)]
-    reqs += [(shared + tail(16, 256), rnd.randint(16, 48))
+    reqs = [(shared + tail(16, 16), rnd.randint(*new))]
+    reqs += [(tail(*unrelated), rnd.randint(*new)) for _ in range(6)]
+    reqs += [(shared + tail(*late_tail), rnd.randint(*new))
              for _ in range(PAGED_LATE)]
     return reqs
 
 
-def phase_full_width_paged(model):
-    """Qwen3-8B at 36 layers through the paged ContinuousBatcher (page 16,
+def phase_full_width_paged(model, phase="full_width_paged", moe_kernel=None):
+    """A full-width model (Qwen3-8B at 36 layers; Qwen3-30B-A3B at 48 with
+    ``moe_kernel``, the wrapper its MoE layers run, on the shorter
+    ``MOE_PAGED_TRAFFIC``) through the paged ContinuousBatcher (page 16,
     prefix cache on, default pool: every slot at full length + the garbage
-    page), once with bf16 pools and once with int8 pools, and the contiguous
-    batcher on the same requests and weights for the greedy-token share."""
+    page), once with bf16 pools and once with int8 pools, and the
+    contiguous batcher on the same requests and weights for the
+    greedy-token share. Each batcher and its cache are freed before the
+    next."""
     cfg = model.config
     layers = cfg.num_layers
-    reqs = paged_requests(cfg.vocab_size)
+    reqs = paged_requests(cfg.vocab_size,
+                          **({} if moe_kernel is None else MOE_PAGED_TRAFFIC))
+
+    def expect(decode_kernel, steps):
+        """Counters of ``steps`` device steps: the decode kernel once per
+        layer, the expert FFN once per MoE layer."""
+        launches = {decode_kernel: steps * layers}
+        if moe_kernel is not None:
+            launches[moe_kernel] = steps * (layers - len(cfg.mlp_only_layers))
+        return counts(**launches)
 
     def serve(**kw):
         from d9d_tpu_torch.loop import ContinuousBatcher
@@ -2385,7 +2656,7 @@ def phase_full_width_paged(model):
 
     def report(entry, batcher, seconds, got, **extra):
         stats = batcher.stats
-        say(phase="full_width_paged", entry=entry, batch_size=8,
+        say(phase=phase, entry=entry, batch_size=8,
             chunk_size=8, requests=len(reqs),
             prompt_tokens=sum(len(p) for p, _ in reqs),
             emitted_tokens=stats.emitted_tokens, seconds=seconds,
@@ -2400,7 +2671,7 @@ def phase_full_width_paged(model):
             counters=got, **extra)
 
     contiguous, want, seconds, got = serve()
-    if got != counts(flash_decode=contiguous.stats.device_steps * layers):
+    if got != expect("flash_decode", contiguous.stats.device_steps):
         raise AssertionError(f"contiguous batcher: counters {got}")
     report("ContinuousBatcher", contiguous, seconds, got,
            kv_bytes_resident=contiguous._kv_bytes_static)
@@ -2415,7 +2686,7 @@ def phase_full_width_paged(model):
                                                prefix_cache=True,
                                                kv_quant=quant)
         steps = batcher.stats.device_steps
-        if got != counts(flash_decode_paged=steps * layers):
+        if got != expect("flash_decode_paged", steps):
             raise AssertionError(f"paged batcher {quant}: counters {got}")
         kv = batcher._kv
         kv.check_invariants()
@@ -2445,32 +2716,152 @@ def phase_full_width_paged(model):
     return launches
 
 
-def profile_decode_steps(model, batch=8, steps=4):
+def phase_full_width_moe():
+    """Qwen3-30B-A3B at full width and all 48 layers, random bf16 weights
+    drawn on the card (an fp32 copy would need 122 GB): ``generate`` on a
+    ragged batch of 4 with chunked prefill once per moe_ffn value (B5 and
+    B6 greedy tokens equal; B7's share of equal tokens read), then the
+    gather+combine kernel through the contiguous batcher and the paged one
+    with bf16 and int8 pools, and a profiled decode step."""
+    from d9d_tpu_torch.loop import generate
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
+
+    cfg = Qwen3MoeConfig.qwen3_30b_a3b()
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    model = Qwen3MoeCausalLM(cfg, decode_max_length=4096,
+                             dtype=torch.bfloat16,
+                             param_dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    say(phase="full_width_moe", model="qwen3_30b_a3b", layers=layers,
+        params=sum(p.numel() for p in model.parameters()),
+        init_seconds=round(time.perf_counter() - t0, 2),
+        weight_bytes=weight_bytes)
+    torch.cuda.reset_peak_memory_stats()
+
+    g = torch.Generator().manual_seed(11)
+    p_len, new, chunk = 1024, 32, 512
+    ids = torch.randint(0, cfg.vocab_size, (4, p_len), generator=g)
+    lengths = torch.tensor([1024, 700, 900, 513])
+    kw = dict(prompt_lengths=lengths, prefill_chunk_size=chunk)
+    launches = dict.fromkeys(KERNEL_NAMES + ("plain_calls", "eager_calls",
+                                             "moe_readbacks"), 0)
+    streams = {}
+    for moe_ffn in MOE_FFN_VALUES:
+        set_moe_ffn(model, moe_ffn)
+        reset_counters(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = generate(model, ids, max_new_tokens=1, **kw)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        got = read_counters(model)
+        # per generate call: chunk 0 on flash_fwd, chunk 1 and every decode
+        # step on flash_decode, each layer's MoE block on every model call
+        want = counts(flash_fwd=2 * layers,
+                      flash_decode=2 * layers + (new - 1) * layers,
+                      **{f"moe_ffn_{moe_ffn}": 2 * 2 * layers
+                         + (new - 1) * layers})
+        if got != want:
+            raise AssertionError(
+                f"MoE generate {moe_ffn}: counters {got}, expected {want}")
+        out_c = out.cpu()
+        if out_c.shape != (4, new) or int(out_c.min()) < 0 \
+                or int(out_c.max()) >= cfg.vocab_size:
+            raise AssertionError(f"MoE generate {moe_ffn}: malformed output")
+        if not torch.equal(out_c[:, 0], first.cpu()[:, 0]):
+            raise AssertionError(f"MoE generate {moe_ffn}: prefills disagree")
+        streams[moe_ffn] = out_c
+        for key in launches:
+            launches[key] += got[key]
+        decode_s = max(total_s - prefill_s, 1e-9)
+        say(phase="full_width_moe", entry="generate", moe_ffn=moe_ffn,
+            batch=4, prompt_tokens=int(lengths.sum()), new_tokens=4 * new,
+            prefill_seconds=prefill_s,
+            prefill_tokens_per_s=float(lengths.sum()) / prefill_s,
+            decode_seconds=decode_s,
+            decode_tokens_per_s=4 * (new - 1) / decode_s,
+            ms_per_decode_step=1e3 * decode_s / (new - 1), counters=got,
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # B6 is B5's arithmetic on gathered rows: the same bits, the same tokens
+    if not torch.equal(streams["gather"], streams["aligned"]):
+        raise AssertionError(
+            f"MoE generate: gather tokens {streams['gather']} differ from "
+            f"aligned {streams['aligned']}")
+    say(phase="full_width_moe", entry="generate",
+        gather_equals_aligned=True,
+        gather_combine_equal_token_share=float(
+            (streams["gather_combine"] == streams["aligned"]).float().mean()))
+
+    set_moe_ffn(model, "gather_combine")
+    for key, n in phase_full_width_paged(
+            model, phase="full_width_moe_paged",
+            moe_kernel="moe_ffn_gather_combine").items():
+        launches[key] += n
+    say(phase="profile", model="qwen3_30b_a3b", moe_ffn="gather_combine",
+        **profile_decode_steps(model, random_tokens=True))
+    return launches
+
+
+def profile_decode_steps(model, batch=8, steps=4, random_tokens=False):
     """Where a full-width decode step spends its time: ``steps`` single-token
     steps of a batch-8 cache at ~1k tokens under ``torch.profiler``. Reports
     the wall time per step (taken without the profiler), the device's busy
     time per step (sum of kernel times) and the share of the step the device
     sat idle; null where the
-    profiler recorded no device activity. Runs after the counters of the
-    main path were read."""
+    profiler recorded no device activity. Also the host syncs of the steps
+    (CUDA sync debug mode's warnings) and the MoE group-size readbacks,
+    both 0 on a forward with no readback, and the MoE kernels' device time.
+    ``random_tokens``: each row a different seeded token (a MoE model then
+    routes the rows apart), else token 0 everywhere. Runs after the
+    counters of the main path were read."""
+    import warnings
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from d9d_tpu_torch.ops.moe import group_sizes_on_host
 
     cache = model.init_cache(batch, per_row=True)
     cache.index.fill_(1000)
     tok = torch.zeros((batch, 1), dtype=torch.int64, device=model.device)
+    if random_tokens:
+        g = torch.Generator().manual_seed(17)
+        tok = torch.randint(0, model.config.vocab_size, (batch, 1),
+                            generator=g).to(model.device)
     pos = torch.full((batch, 1), 1000, dtype=torch.int32, device=model.device)
 
-    def run():
+    def run(sync=True):
         for _ in range(steps):
             model.logits_last(tok, pos, cache=cache)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
 
     run()  # warm
     cache.index.fill_(1000)
     t0 = time.perf_counter()
     run()  # the wall time is taken without the profiler's overhead
     wall = time.perf_counter() - t0
+    cache.index.fill_(1000)
+    readbacks = group_sizes_on_host.readbacks
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(sync=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    readbacks = group_sizes_on_host.readbacks - readbacks
+    # the mode's own notice ("... is a prototype feature ...") is no sync
+    syncs = [str(w.message)[:120] for w in caught
+             if "called a synchronizing" in str(w.message)]
     cache.index.fill_(1000)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -2486,6 +2877,9 @@ def profile_decode_steps(model, batch=8, steps=4):
     out = {
         "what": f"{steps} decode steps, batch {batch}, cache at 1000 tokens",
         "wall_ms_per_step": 1e3 * wall / steps,
+        "host_syncs_per_step": len(syncs) / steps,
+        "host_sync_messages": sorted(set(syncs))[:4],
+        "moe_readbacks_per_step": readbacks / steps,
         "device_busy_ms_per_step": None, "device_idle_share": None,
         "device_kernels_per_step": None, "top_device_ops": None,
         "top_host_ops_by_calls": [
@@ -2503,6 +2897,14 @@ def profile_decode_steps(model, batch=8, steps=4):
             decode_kernels_per_step={
                 e.key[:72]: e.count / steps for e in kernels
                 if DECODE_KERNEL_TAG in e.key},
+            # the expert-FFN kernels (none in a dense model)
+            moe_kernels_per_step={
+                e.key[:72]: {"calls": e.count / steps,
+                             "ms": e.self_device_time_total / 1e3 / steps}
+                for e in kernels if MOE_KERNEL_TAG in e.key},
+            moe_device_ms_per_step=sum(
+                e.self_device_time_total for e in kernels
+                if MOE_KERNEL_TAG in e.key) / 1e3 / steps,
             top_device_ops=[
                 {"name": e.key[:60],
                  "ms_per_step": e.self_device_time_total / 1e3 / steps,
@@ -3647,6 +4049,7 @@ def main():
     phase_build()
     kernels = phase_kernels()
     phase_small_e2e()
+    phase_small_e2e_moe()
     phase_small_e2e_train()
     phase_small_e2e_train_moe()
     phase_small_e2e_train_bf16()
@@ -3656,7 +4059,8 @@ def main():
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    for phase in (phase_full_width_train, phase_full_width_train_moe,
+    for phase in (phase_full_width_moe, phase_full_width_train,
+                  phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train):
         for name, n in phase().items():
             launches[name] += n

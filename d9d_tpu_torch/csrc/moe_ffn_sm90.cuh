@@ -1,17 +1,25 @@
-// moe_ffn_sm90: the Hopper core of the bfloat16 expert FFN of two kernels
-// of moe_ffn.cu, each replacing a TPU kernel of d9d_tpu/ops/moe_pallas.py:
+// moe_ffn_sm90: the Hopper core of the bfloat16 expert FFN, the three
+// kernels of moe_ffn.cu, each replacing a TPU kernel of
+// d9d_tpu/ops/moe_pallas.py:
 //
 //   B5 (kernel 0, `_ffn_kernel` through `_fused_ffn_call`): rows from the
 //      aligned activation buffer [m_pad, h], output y [m_pad, h] in bf16;
+//   B6 (kernel 1, `_ffn_gather_kernel` through `_fused_gather_call`): rows
+//      gathered from x [N, h] by pair_src, output y [m_pad, h] in bf16 as
+//      B5's (the aligned buffer never exists);
 //   B7 (kernel 2, `_ffn_gather_combine_kernel` through
-//      `_fused_gather_combine_call`): rows gathered from x [N, h] by
-//      pair_src, each row's prob-weighted output added into its token's row
-//      of a zeroed fp32 [N, h].
+//      `_fused_gather_combine_call`): rows gathered as B6's, each row's
+//      prob-weighted output added into its token's row of a zeroed fp32
+//      [N, h].
 //
-// Both compute, per tile of BM = 128 rows of ONE expert,
+// The row source (aligned by TMA, or gathered) and the epilogue (stored, or
+// added) are two choices of one body, set by its Mode. All compute, per
+// tile of BM = 128 rows of ONE expert,
 //     y = (silu(A Wg) * (A Wu)).astype(bf16) Wd * probs
 // with fp32 accumulation, the hidden rounded to bf16 before the down
-// product and y * probs rounded once (B5) or added in fp32 (B7).
+// product and y * probs rounded once (B5, B6) or added in fp32 (B7). B6
+// reads each row's prob as probs[pair_src[row]] (0 for a pad row), B5 the
+// aligned probs[row]: on one routing the two give the same bits.
 //
 // Bound on this card: bytes, at Qwen3-30B-A3B widths (h 2048, i 768, 128
 // experts, 32768 pairs a microbatch): 1.2 GB of expert weights read at
@@ -21,7 +29,8 @@
 //   gate-up  block (tile, 128 columns of i): [G | U] = A [Wg | Wu] over
 //            k-slices of h, then bf16(silu(G) * U) into hidden [m_pad, i];
 //   down     block (tile, 256 columns of h): Y = hidden Wd over k-slices of
-//            i, then the prob scale and the store (B5) or the add (B7).
+//            i, then the prob scale and the store (B5, B6) or the add
+//            (B7).
 // The hidden's round trip (2 * m_pad * i * 2 bytes, ~0.15 GB at the widths
 // above) frees the shared memory a resident [BM, i] hidden tile would take,
 // so a block holds four 48 KB stages and 128 rows. A block is three
@@ -36,26 +45,30 @@
 //     contiguous, so they are N-major B operands (the descriptor's
 //     transpose bit), never transposed in memory;
 //   - B5's rows and the hidden by TMA, boxes of 128 rows x 64;
-//   - B7's rows are gathered: TMA cannot gather rows on sm_90, so the whole
-//     producer warpgroup copies each row's 16-byte pieces with cp.async into
-//     the same swizzled places (piece c of row r at r*128 + (c ^ (r&7))*16),
-//     zero-filling pad rows; each thread waits for its copies two stages
-//     late, fences them into the async proxy (wgmma reads shared memory
-//     there) and then arrives on the stage's full barrier.
+//   - B6's and B7's rows are gathered: TMA cannot gather rows on sm_90, so
+//     the whole producer warpgroup copies each row's 16-byte pieces with
+//     cp.async into the same swizzled places (piece c of row r at
+//     r*128 + (c ^ (r&7))*16), zero-filling pad rows; each thread waits for
+//     its copies two stages late, fences them into the async proxy (wgmma
+//     reads shared memory there) and then arrives on the stage's full
+//     barrier.
 // The consumers keep two wgmma groups in flight (wait_group 1) and free a
 // stage when its group has retired. Blocks run tile-major, so the column
 // blocks of one tile and the tiles of one expert run next to each other
 // and re-read the expert's weights and the tile's rows from L2. Epilogues:
-// the hidden in bf16 pairs; B5's output staged through the drained stages
-// and stored 16 bytes a thread; B7's as 4-column fp32 atomic adds (two
-// lanes swap halves first).
+// the hidden in bf16 pairs; B5's and B6's output staged through the drained
+// stages and stored 16 bytes a thread; B7's as 4-column fp32 atomic adds
+// (two lanes swap halves first).
 //
 // Padding: a tile whose first row is padding is all padding (real rows
 // come first in every group); its blocks read no weight: the gate-up block
-// and B7's down block exit, B5's down block writes its zero outputs. A
-// warpgroup whose 64 rows are all padding skips its products. Rows of a
-// partly padded tile are zero (the aligned buffer's pad rows, or
-// zero-filled by the gather) with prob 0, so they add nothing.
+// and B7's down block exit, B5's and B6's down blocks write their zero
+// outputs (the wrappers allocate y uninitialised). A warpgroup whose 64
+// rows are all padding skips its products. Rows of a partly padded tile are
+// zero (the aligned buffer's pad rows, or zero-filled by the gather) with
+// prob 0, so they add nothing. At decode sizes (8 tokens, 64 pairs, 128
+// experts) most tiles are all padding, and these exits are the common
+// case.
 //
 // Domain: h and i multiples of 64 (a block whose last boxes lie beyond the
 // matrix loads the boxes inside it and stores their columns only).
@@ -82,13 +95,21 @@ constexpr int GATHER_LAG = 2;      // stages a gathering thread waits behind
 constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;
 
+// the kernel number of d9d_moe_ffn: where the rows come from, and where the
+// output goes
+enum Mode : int {
+  ALIGNED = 0,  // B5: aligned rows by TMA; bf16 y stored
+  GATHER = 1,   // B6: rows gathered from x; bf16 y stored
+  COMBINE = 2,  // B7: rows gathered from x; fp32 y * prob added per token
+};
+
 struct Params {
-  const __nv_bfloat16* x;  // B7 gate-up: x [N, h]
-  const float* probs;      // B5: [m_pad]; B7: [N * K]
+  const __nv_bfloat16* x;  // B6, B7 gate-up: x [N, h]
+  const float* probs;      // B5: [m_pad]; B6, B7: [N * K]
   const int* pair_src;     // [m_pad], -1 = padding
   const int* gid;          // [n_tiles]
   __nv_bfloat16* hidden;   // [m_pad, i]
-  void* out;               // B5: bf16 [m_pad, h]; B7: zeroed fp32 [N, h]
+  void* out;               // B5, B6: bf16 [m_pad, h]; B7: zeroed fp32 [N, h]
   int h, inter, top_k;
   int n_col_blocks;        // column blocks per tile
 };
@@ -102,8 +123,8 @@ __host__ __device__ constexpr int block_n(int nw) {
 __host__ __device__ constexpr int stage_bytes(int nw) {
   return A_BYTES + nw * (block_n(nw) / PANEL) * PANEL_BYTES;
 }
-// B5's down block stages its bf16 output tile in the (drained) stages, in
-// rows of this pitch (elements), free of bank conflicts
+// B5's and B6's down block stages its bf16 output tile in the (drained)
+// stages, in rows of this pitch (elements), free of bank conflicts
 constexpr int EPI_PITCH = BN_DOWN + 8;
 static_assert(2 * 64 * EPI_PITCH * 2 <= STAGES * stage_bytes(1),
               "the staged output tile fits in the stages");
@@ -260,17 +281,18 @@ __device__ __forceinline__ void bar_sync_named(int id, int n) {
 
 // ---------------------------------------------------------------------------
 // the body: NW = 2 is the gate-up block (A Wg and A Wu into the hidden), NW
-// = 1 the down block (hidden Wd into the output). COMBINE = false is B5
-// (aligned rows by TMA; bf16 output stored), true is B7 (rows gathered;
-// fp32 output added into the token's row).
+// = 1 the down block (hidden Wd into the output). MODE picks the gate-up
+// block's row source (ALIGNED: by TMA; GATHER, COMBINE: gathered) and the
+// down block's epilogue (ALIGNED, GATHER: bf16 y stored; COMBINE: fp32 y
+// added into the token's row).
 
-template <int NW, bool COMBINE>
+template <int NW, Mode MODE>
 __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
                                          const CUtensorMap* tm_w0,
                                          const CUtensorMap* tm_w1,
                                          const Params& p) {
-  constexpr bool GATHER = NW == 2 && COMBINE;
-  constexpr bool STAGE_OUT = NW == 1 && !COMBINE;
+  constexpr bool GATHERS_ROWS = NW == 2 && MODE != ALIGNED;
+  constexpr bool STAGE_OUT = NW == 1 && MODE != COMBINE;
   constexpr int BN = block_n(NW);
   constexpr int W_BYTES = (BN / PANEL) * PANEL_BYTES;  // one weight's slice
   constexpr int SB = stage_bytes(NW);
@@ -305,13 +327,13 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
 
   const int e = p.gid[tile];
   const int nk = k_total / BK;
-  const uint32_t tx =
-      (GATHER ? 0u : (uint32_t)A_BYTES) + (uint32_t)(NW * panels * PANEL_BYTES);
+  const uint32_t tx = (GATHERS_ROWS ? 0u : (uint32_t)A_BYTES) +
+                      (uint32_t)(NW * panels * PANEL_BYTES);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       // gathering: the expect_tx arrival plus one per producer thread
-      mbar_init(full_bar(s), GATHER ? 1 + 128 : 1);
+      mbar_init(full_bar(s), GATHERS_ROWS ? 1 + 128 : 1);
       mbar_init(empty_bar(s), 8);  // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -333,7 +355,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
                    n0 + q * PANEL, w_row0 + kb * BK, bar);
       }
     };
-    if constexpr (GATHER) {
+    if constexpr (GATHERS_ROWS) {
       // piece c of rows r0 + 16 j: 8 threads read one row's 128 bytes
       const int c = pt & 7;
       const int r0 = pt >> 3;
@@ -438,7 +460,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
                                     silu_f(acc[j + 1]) * acc[64 + j + 1]);
         }
       }
-    } else if constexpr (COMBINE) {
+    } else if constexpr (MODE == COMBINE) {
       // fp32 adds of the prob-weighted rows into their tokens' rows, four
       // columns an add: neighbouring lanes swap halves, so the even lane
       // holds 4 columns of row r_lo and the odd lane 4 of row r_lo + 8
@@ -469,14 +491,22 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
     } else {
       // y * prob rounded once, staged through the drained stages (both
       // warpgroups' products have retired, every load was consumed), then
-      // stored in 16-byte pieces, a row's pieces by neighbouring threads
+      // stored in 16-byte pieces, a row's pieces by neighbouring threads.
+      // B5 reads the aligned probs, B6 the pair's (0 for a pad row).
       bar_sync_named(1, 256);
       __nv_bfloat16* tile_s =
           reinterpret_cast<__nv_bfloat16*>(base_ptr) + wg * 64 * EPI_PITCH;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int rl = warp * 16 + (lane >> 2) + 8 * hh;
-        const float pr = p.probs[row0 + wg * 64 + rl];
+        const long long row = row0 + wg * 64 + rl;
+        float pr;
+        if constexpr (MODE == ALIGNED) {
+          pr = p.probs[row];
+        } else {
+          const int src = p.pair_src[row];
+          pr = src >= 0 ? p.probs[src] : 0.f;
+        }
 #pragma unroll
         for (int b = 0; b < BN / 8; ++b) {
           const int j = 4 * b + 2 * hh;
@@ -504,34 +534,42 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* tm_a,
   }
 }
 
-// the four kernels: gate-up and down of B5 and of B7
+// the five kernels: the gate-up of B5, the gathering gate-up of B6 and B7
+// (the same block), and the down of each
 __global__ void __launch_bounds__(NTHREADS, 1)
     ffn_sm90_gate_up_aligned(const __grid_constant__ CUtensorMap tm_a,
                              const __grid_constant__ CUtensorMap tm_wg,
                              const __grid_constant__ CUtensorMap tm_wu,
                              const Params p) {
-  ffn_body<2, false>(&tm_a, &tm_wg, &tm_wu, p);
+  ffn_body<2, ALIGNED>(&tm_a, &tm_wg, &tm_wu, p);
 }
 __global__ void __launch_bounds__(NTHREADS, 1)
     ffn_sm90_gate_up_gather(const __grid_constant__ CUtensorMap tm_a,
                             const __grid_constant__ CUtensorMap tm_wg,
                             const __grid_constant__ CUtensorMap tm_wu,
                             const Params p) {
-  ffn_body<2, true>(&tm_a, &tm_wg, &tm_wu, p);
+  ffn_body<2, GATHER>(&tm_a, &tm_wg, &tm_wu, p);
 }
 __global__ void __launch_bounds__(NTHREADS, 1)
     ffn_sm90_down_aligned(const __grid_constant__ CUtensorMap tm_h,
                           const __grid_constant__ CUtensorMap tm_wd,
                           const __grid_constant__ CUtensorMap tm_unused,
                           const Params p) {
-  ffn_body<1, false>(&tm_h, &tm_wd, &tm_unused, p);
+  ffn_body<1, ALIGNED>(&tm_h, &tm_wd, &tm_unused, p);
+}
+__global__ void __launch_bounds__(NTHREADS, 1)
+    ffn_sm90_down_gather(const __grid_constant__ CUtensorMap tm_h,
+                         const __grid_constant__ CUtensorMap tm_wd,
+                         const __grid_constant__ CUtensorMap tm_unused,
+                         const Params p) {
+  ffn_body<1, GATHER>(&tm_h, &tm_wd, &tm_unused, p);
 }
 __global__ void __launch_bounds__(NTHREADS, 1)
     ffn_sm90_down_combine(const __grid_constant__ CUtensorMap tm_h,
                           const __grid_constant__ CUtensorMap tm_wd,
                           const __grid_constant__ CUtensorMap tm_unused,
                           const Params p) {
-  ffn_body<1, true>(&tm_h, &tm_wd, &tm_unused, p);
+  ffn_body<1, COMBINE>(&tm_h, &tm_wd, &tm_unused, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -589,18 +627,20 @@ inline cudaError_t launch_one(Sm90Kernel fn, size_t smem, int blocks,
   return cudaGetLastError();
 }
 
-// B5 (combine = false) or B7 (combine = true) on the sm_90 core: the
-// gate-up launch, then the down launch, each checked. a: aligned rows
-// [n_tiles * BM, h] (B5) or x [n_x, h] (B7); hidden: [n_tiles * BM, inter]
-// scratch; out: bf16 [n_tiles * BM, h] (B5) or zeroed fp32 [n_x, h] (B7).
-inline cudaError_t ffn(bool combine, const void* a, const float* probs,
+// B5, B6 or B7 (mode) on the sm_90 core: the gate-up launch, then the down
+// launch, each checked. a: aligned rows [n_tiles * BM, h] (B5) or x
+// [n_x, h] (B6, B7); probs: [n_tiles * BM] (B5) or [n_x * top_k]; hidden:
+// [n_tiles * BM, inter] scratch; out: bf16 [n_tiles * BM, h] (B5, B6) or
+// zeroed fp32 [n_x, h] (B7).
+inline cudaError_t ffn(Mode mode, const void* a, const float* probs,
                        const int* gid, const int* pair_src, const void* wg,
                        const void* wu, const void* wd, void* hidden, void* out,
                        int n_tiles, int num_experts, int h, int inter,
                        int top_k, cudaStream_t stream) {
   const uint64_t m_pad = (uint64_t)n_tiles * BM;
   CUtensorMap tm_a{}, tm_wg{}, tm_wu{}, tm_h{}, tm_wd{};
-  if ((!combine && !tensor_map(&tm_a, a, m_pad, h, BM)) ||
+  // the gathering gate-up reads x itself: no map of a
+  if ((mode == ALIGNED && !tensor_map(&tm_a, a, m_pad, h, BM)) ||
       !tensor_map(&tm_wg, wg, (uint64_t)num_experts * h, inter, BK) ||
       !tensor_map(&tm_wu, wu, (uint64_t)num_experts * h, inter, BK) ||
       !tensor_map(&tm_h, hidden, m_pad, inter, BM) ||
@@ -618,13 +658,15 @@ inline cudaError_t ffn(bool combine, const void* a, const float* probs,
   p.top_k = top_k;
   p.n_col_blocks = (inter + BN_GATE_UP - 1) / BN_GATE_UP;
   cudaError_t err = launch_one(
-      combine ? ffn_sm90_gate_up_gather : ffn_sm90_gate_up_aligned,
+      mode == ALIGNED ? ffn_sm90_gate_up_aligned : ffn_sm90_gate_up_gather,
       smem_bytes(2), n_tiles * p.n_col_blocks, tm_a, tm_wg, tm_wu, p, stream);
   if (err != cudaSuccess) return err;
+  static const Sm90Kernel down[3] = {ffn_sm90_down_aligned,
+                                     ffn_sm90_down_gather,
+                                     ffn_sm90_down_combine};
   p.n_col_blocks = (h + BN_DOWN - 1) / BN_DOWN;
-  return launch_one(combine ? ffn_sm90_down_combine : ffn_sm90_down_aligned,
-                    smem_bytes(1), n_tiles * p.n_col_blocks, tm_h, tm_wd,
-                    tm_wd, p, stream);
+  return launch_one(down[mode], smem_bytes(1), n_tiles * p.n_col_blocks,
+                    tm_h, tm_wd, tm_wd, p, stream);
 }
 
 }  // namespace sm90

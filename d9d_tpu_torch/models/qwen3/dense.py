@@ -13,6 +13,10 @@ Layer ``i`` is ``model.layers[i]``, the counterpart of the JAX tree's
 
 Weights are created directly on the device, layer by layer, from one seeded
 ``torch.Generator`` — there is never a full copy on the host.
+
+The MoE family (``moe.py``) serves through the same pieces:
+:func:`run_decoder_layers` (the layer loop, cache and remat) and
+:class:`Qwen3CausalLMBase` (the head's entry points and ``init_cache``).
 """
 
 from typing import Optional
@@ -37,6 +41,36 @@ def _make_generator(seed: int | None, device: torch.device):
     if seed is None:
         return None
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def run_decoder_layers(
+    backbone: nn.Module,
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    cache: Optional[DecodeCache],
+) -> torch.Tensor:
+    """``backbone.layers`` over the embedded ``x [B, T, E]``. In decode mode
+    (``backbone.decode_max_length > 0``) every layer writes ``cache`` in
+    place and the shared write index advances by ``T`` once, after the last
+    layer; ``backbone.config.remat`` recomputes each layer in the backward
+    of a training forward only."""
+    if backbone.decode_max_length > 0 and cache is None:
+        raise ValueError("decode mode needs a DecodeCache")
+    # remat is a backward-pass tool: decode is forward-only, and a
+    # forward without autograd has nothing to recompute
+    remat = (backbone.config.remat and backbone.decode_max_length == 0
+             and torch.is_grad_enabled())
+    for i, layer in enumerate(backbone.layers):
+        if remat:
+            x = checkpoint(layer, x, cos, sin, mask, use_reentrant=False)
+        else:
+            x = layer(x, cos, sin, mask,
+                      None if cache is None else cache.layer(i, x.shape[1]))
+    if cache is not None:
+        cache.advance(x.shape[1])
+    return x
 
 
 class Qwen3DenseBackbone(nn.Module):
@@ -100,48 +134,37 @@ class Qwen3DenseBackbone(nn.Module):
         mask: Optional[torch.Tensor] = None,
         cache: Optional[DecodeCache] = None,
     ) -> torch.Tensor:
-        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``.
-        In decode mode every layer writes ``cache`` in place and the shared
-        write index advances by ``T`` once, after the last layer."""
-        if self.decode_max_length > 0 and cache is None:
-            raise ValueError("decode mode needs a DecodeCache")
+        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``
+        (see :func:`run_decoder_layers` for ``cache``)."""
         x = self.embed_tokens(x)
         cos, sin = make_rope_cos_sin(
             positions, self.inv_freq, self.rope_attention_scale
         )
-        # remat is a backward-pass tool: decode is forward-only, and a
-        # forward without autograd has nothing to recompute
-        remat = (self.config.remat and self.decode_max_length == 0
-                 and torch.is_grad_enabled())
-        for i, layer in enumerate(self.layers):
-            if remat:
-                x = checkpoint(layer, x, cos, sin, mask, use_reentrant=False)
-            else:
-                x = layer(x, cos, sin, mask,
-                          None if cache is None else cache.layer(i, x.shape[1]))
-        if cache is not None:
-            cache.advance(x.shape[1])
-        return self.norm(x)
+        return self.norm(run_decoder_layers(self, x, cos, sin, mask, cache))
 
 
-class Qwen3DenseCausalLM(nn.Module):
-    """Backbone + fused-CE LM head. ``forward`` with labels returns the
-    per-token loss ``[B, T]`` (training); ``logits`` / ``logits_last``
-    serve inference and never build an autograd graph.
+class Qwen3CausalLMBase(nn.Module):
+    """The entry points the dense and MoE causal LMs share: ``forward`` with
+    labels returns the per-token loss ``[B, T]`` (training); ``logits`` /
+    ``logits_last`` serve inference and never build an autograd graph;
+    :meth:`init_cache` makes the decode cache of a model built with
+    ``decode_max_length > 0``.
 
-    ``device=None`` means the card (raises without one). ``seed`` seeds the
-    device generator the random weights are drawn from. ``sdpa=None`` builds
-    the flash backend. ``param_dtype`` is the dtype parameters are held in
-    (``None``: the compute ``dtype``; training passes ``torch.float32``, the
-    JAX package's default). With ``decode_max_length > 0`` the model runs
-    in KV-cache decode mode and every call takes the :class:`DecodeCache`
-    made by :meth:`init_cache`.
-    """
+    ``backbone`` is the backbone's class (or a partial of it), called as
+    ``backbone(config, sdpa, decode_max_length=..., dtype=...,
+    param_dtype=..., device=..., generator=...)``; the head's weights are
+    drawn after the backbone's, from the same generator. ``device=None``
+    means the card (raises without one). ``seed`` seeds the device generator
+    the random weights are drawn from. ``sdpa=None`` builds the flash
+    backend. ``param_dtype`` is the dtype parameters are held in (``None``:
+    the compute ``dtype``; training passes ``torch.float32``, the JAX
+    package's default)."""
 
     def __init__(
         self,
-        config: Qwen3DenseConfig,
-        sdpa: SdpaBackend | None = None,
+        config,
+        sdpa: SdpaBackend | None,
+        backbone,
         *,
         decode_max_length: int = 0,
         ce_chunk_size: "int | str" = "auto",
@@ -158,7 +181,7 @@ class Qwen3DenseCausalLM(nn.Module):
         self.dtype = dtype
         self.device = dev
         self.sdpa = sdpa if sdpa is not None else build_sdpa_backend()
-        self.model = Qwen3DenseBackbone(
+        self.model = backbone(
             config, self.sdpa, decode_max_length=decode_max_length,
             dtype=dtype, param_dtype=param_dtype, device=dev, generator=gen,
         )
@@ -235,3 +258,28 @@ class Qwen3DenseCausalLM(nn.Module):
         decode mode) but the LM head product covers one row instead of P."""
         h = self.model(x, positions, mask, cache)
         return self.lm_head.logits(h[:, -1:])
+
+
+class Qwen3DenseCausalLM(Qwen3CausalLMBase):
+    """Backbone + fused-CE LM head (entry points and options:
+    :class:`Qwen3CausalLMBase`). With ``decode_max_length > 0`` the model
+    runs in KV-cache decode mode and every call takes the
+    :class:`DecodeCache` made by :meth:`init_cache`."""
+
+    def __init__(
+        self,
+        config: Qwen3DenseConfig,
+        sdpa: SdpaBackend | None = None,
+        *,
+        decode_max_length: int = 0,
+        ce_chunk_size: "int | str" = "auto",
+        dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype | None = None,
+        device: "torch.device | str | None" = None,
+        seed: int | None = 0,
+    ):
+        super().__init__(
+            config, sdpa, Qwen3DenseBackbone,
+            decode_max_length=decode_max_length, ce_chunk_size=ce_chunk_size,
+            dtype=dtype, param_dtype=param_dtype, device=device, seed=seed,
+        )

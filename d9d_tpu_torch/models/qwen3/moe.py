@@ -3,12 +3,14 @@ head (counterpart of ``d9d_tpu/models/qwen3/moe.py``).
 
 The dense family's structure with the FFN replaced by a :class:`MoELayer`
 (every layer sparse, except the ``mlp_only_layers``, which keep a dense
-SwiGLU). Single pipeline stage, local experts, training and full-sequence
-forward only. The config has the JAX dataclass's fields; those the port
-cannot honour yet raise when the model is built: GDN layers
-(``linear_attention_layers``), MLA (``mla``), expert parallelism
-(``ep_axes``, ``moe_token_axes``), remat policies other than ``"full"``,
-and KV-cache decode (``decode_max_length > 0``).
+SwiGLU). Single pipeline stage, local experts: training, full-sequence
+forward and KV-cache decode (``decode_max_length > 0``: ``generate`` and
+``ContinuousBatcher`` serve it as they serve the dense model, through the
+entry points of :class:`~d9d_tpu_torch.models.qwen3.dense.Qwen3CausalLMBase`).
+The config has the JAX dataclass's fields; those the port cannot honour yet
+raise when the model is built: GDN layers (``linear_attention_layers``),
+MLA (``mla``), expert parallelism (``ep_axes``, ``moe_token_axes``) and
+remat policies other than ``"full"``.
 
 ``moe_ffn`` picks the fused expert-FFN kernel of every MoE layer
 (``"aligned"``, ``"gather"``, ``"gather_combine"``; ``ops/moe_ffn.py``).
@@ -16,21 +18,26 @@ Layer ``i`` is ``model.layers[i]``, the counterpart of ``layers_{i}``.
 """
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from d9d_tpu_torch.core.device import resolve_device
-from d9d_tpu_torch.models.qwen3.dense import _make_generator
-from d9d_tpu_torch.nn.attention import GroupedQueryAttention
+from d9d_tpu_torch.models.qwen3.dense import (
+    Qwen3CausalLMBase,
+    run_decoder_layers,
+)
+from d9d_tpu_torch.nn.attention import (
+    DecodeCache,
+    GroupedQueryAttention,
+    LayerKVCache,
+)
 from d9d_tpu_torch.nn.embedding import TokenEmbedding
-from d9d_tpu_torch.nn.heads import LanguageModellingHead
 from d9d_tpu_torch.nn.mlp import SwiGLU
 from d9d_tpu_torch.nn.moe import MoeFfn, MoELayer, SharedExpertParameters
 from d9d_tpu_torch.nn.norm import RMSNorm
-from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
 from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
 from d9d_tpu_torch.ops import (
     RopeScaling,
@@ -125,8 +132,8 @@ def _check_ported(cfg: Qwen3MoeConfig) -> None:
     unported = {
         "linear_attention_layers (GDN)": bool(cfg.linear_attention_layers),
         "mla": cfg.mla is not None,
-        "ep_axes (expert parallelism, ROADMAP A4)": cfg.ep_axes is not None,
-        "moe_token_axes (expert parallelism, ROADMAP A4)":
+        "ep_axes (expert parallelism, ROADMAP A3)": cfg.ep_axes is not None,
+        "moe_token_axes (expert parallelism, ROADMAP A3)":
             cfg.moe_token_axes is not None,
     }
     on = [k for k, v in unported.items() if v]
@@ -150,6 +157,7 @@ class Qwen3MoeDecoderLayer(nn.Module):
         layer_idx: int,
         *,
         moe_ffn: MoeFfn = "aligned",
+        decode_max_length: int = 0,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
@@ -167,7 +175,8 @@ class Qwen3MoeDecoderLayer(nn.Module):
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, sdpa=sdpa,
             qk_norm=cfg.qk_norm, qk_norm_zero_centered=zc,
             use_output_gate=cfg.use_output_gate, fused_qkv=cfg.fused_qkv,
-            rope_fraction=cfg.rope_fraction, **kw)
+            rope_fraction=cfg.rope_fraction,
+            decode_max_length=decode_max_length, **kw)
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, eps=cfg.norm_eps, zero_centered=zc, device=device)
         if layer_idx in cfg.mlp_only_layers:
@@ -184,8 +193,9 @@ class Qwen3MoeDecoderLayer(nn.Module):
                 router_topk_group=cfg.router_topk_group,
                 moe_ffn=moe_ffn, **kw)
 
-    def forward(self, x, cos, sin, mask: Optional[torch.Tensor] = None):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask)
+    def forward(self, x, cos, sin, mask: Optional[torch.Tensor] = None,
+                cache: Optional[LayerKVCache] = None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask, cache)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -196,6 +206,7 @@ class Qwen3MoeBackbone(nn.Module):
         sdpa: SdpaBackend,
         *,
         moe_ffn: MoeFfn = "aligned",
+        decode_max_length: int = 0,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
@@ -205,13 +216,15 @@ class Qwen3MoeBackbone(nn.Module):
         cfg = config
         _check_ported(cfg)
         self.config = cfg
+        self.decode_max_length = decode_max_length
         dev = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
         self.embed_tokens = TokenEmbedding(cfg.vocab_ranges, cfg.hidden_size,
                                            **kw)
         self.layers = nn.ModuleList(
-            Qwen3MoeDecoderLayer(cfg, sdpa, i, moe_ffn=moe_ffn, **kw)
+            Qwen3MoeDecoderLayer(cfg, sdpa, i, moe_ffn=moe_ffn,
+                                 decode_max_length=decode_max_length, **kw)
             for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps,
                             zero_centered=cfg.zero_centered_norms, device=dev)
@@ -222,27 +235,22 @@ class Qwen3MoeBackbone(nn.Module):
         self.register_buffer("inv_freq", inv_freq, persistent=False)
         self.rope_attention_scale = att_scale
 
-    def forward(self, x, positions, mask: Optional[torch.Tensor] = None):
-        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``."""
+    def forward(self, x, positions, mask: Optional[torch.Tensor] = None,
+                cache: Optional[DecodeCache] = None):
+        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``
+        (``cache``: as the dense backbone's, never under remat)."""
         x = self.embed_tokens(x)
         cos, sin = make_rope_cos_sin(positions, self.inv_freq,
                                      self.rope_attention_scale)
-        remat = self.config.remat and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, cos, sin, mask, use_reentrant=False)
-            else:
-                x = layer(x, cos, sin, mask)
-        return self.norm(x)
+        return self.norm(run_decoder_layers(self, x, cos, sin, mask, cache))
 
 
-class Qwen3MoeCausalLM(nn.Module):
-    """Backbone + fused-CE LM head. ``forward`` with labels returns the
-    per-token loss ``[B, T]`` (training); ``logits`` never builds an
-    autograd graph. ``device=None`` means the card; ``seed`` seeds the
-    device generator the random weights come from; ``sdpa=None`` builds the
-    flash backend; ``param_dtype`` as in the dense model. Serving the MoE
-    model (``decode_max_length > 0``) is not ported yet and raises."""
+class Qwen3MoeCausalLM(Qwen3CausalLMBase):
+    """Backbone + fused-CE LM head (entry points and options:
+    :class:`Qwen3CausalLMBase`; ``moe_ffn`` as the module says). With
+    ``decode_max_length > 0`` the model runs in KV-cache decode mode, as the
+    dense one does: every MoE layer routes the step's 1–8 tokens a row
+    through the same fused kernels, with no readback."""
 
     def __init__(
         self,
@@ -257,35 +265,7 @@ class Qwen3MoeCausalLM(nn.Module):
         device: "torch.device | str | None" = None,
         seed: int | None = 0,
     ):
-        super().__init__()
-        if decode_max_length > 0:
-            raise NotImplementedError(
-                "Qwen3MoeCausalLM: KV-cache decode (serving the MoE model) "
-                "is not ported yet")
-        dev = resolve_device(device)
-        gen = _make_generator(seed, dev)
-        self.config = config
-        self.dtype = dtype
-        self.device = dev
-        self.sdpa = sdpa if sdpa is not None else build_sdpa_backend()
-        self.model = Qwen3MoeBackbone(
-            config, self.sdpa, moe_ffn=moe_ffn, dtype=dtype,
-            param_dtype=param_dtype, device=dev, generator=gen)
-        self.lm_head = LanguageModellingHead(
-            config.vocab_ranges, config.hidden_size,
-            ce_chunk_size=ce_chunk_size, dtype=dtype,
-            param_dtype=param_dtype, device=dev, generator=gen)
-
-    def forward(self, x, positions, labels: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``x [B, T]`` tokens, ``positions [B, T]`` → per-token fp32 loss
-        ``[B, T]`` with ``labels``, else the final hidden state."""
-        h = self.model(x, positions, mask)
-        if labels is not None:
-            return self.lm_head(h, labels)
-        return h
-
-    @torch.no_grad()
-    def logits(self, x, positions,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.lm_head.logits(self.model(x, positions, mask))
+        super().__init__(
+            config, sdpa, functools.partial(Qwen3MoeBackbone, moe_ffn=moe_ffn),
+            decode_max_length=decode_max_length, ce_chunk_size=ce_chunk_size,
+            dtype=dtype, param_dtype=param_dtype, device=device, seed=seed)

@@ -228,7 +228,7 @@ class MoELayer(nn.Module):
         if ep_axes is not None or token_axes is not None:
             raise NotImplementedError(
                 "MoELayer: the expert-parallel path (ep_axes, token_axes) is "
-                "not ported yet (ROADMAP A4); the local path takes "
+                "not ported yet (ROADMAP A3); the local path takes "
                 "ep_axes=None")
         if moe_ffn not in MOE_FFN_VARIANTS:
             raise ValueError(f"moe_ffn {moe_ffn!r} is not one of "

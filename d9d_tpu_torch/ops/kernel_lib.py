@@ -101,7 +101,7 @@ _SIGNATURES = {
     "d9d_moe_ffn": [
         _P, _P, _P, _P,              # a (rows or x), probs, gid, pair_src
         _P, _P, _P, _P,              # wg, wu, wd, out
-        _P,                          # hidden scratch (bf16 B5, B7; nullable)
+        _P,                          # hidden scratch (bf16; null in fp32)
         _I, _I, _I,                  # kernel, n_tiles, num_experts
         _I, _I, _I, _I,              # h, inter, top_k, dtype
         _P,                          # stream

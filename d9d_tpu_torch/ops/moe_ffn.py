@@ -7,8 +7,8 @@ Counterpart of ``d9d_tpu/ops/moe_pallas.py``: ``AlignedMeta`` /
 ``_ffn_gather_kernel``, ``_ffn_gather_combine_kernel`` through their
 ``_fused_*_call``), ``_reference_apply``, the ``custom_vjp``
 ``fused_moe_ffn`` and ``fused_moe_ffn_apply``. The kernels themselves are
-``d9d_tpu_torch/csrc/moe_ffn.cu``; in bfloat16 the aligned (B5) and the
-gather + combine (B7) kernels run on its Hopper core
+``d9d_tpu_torch/csrc/moe_ffn.cu``; in bfloat16 all three — aligned (B5),
+gather (B6), gather + combine (B7) — run on its Hopper core
 ``csrc/moe_ffn_sm90.cuh``: two device kernels a call (gate-up, then down)
 that pass the hidden through a bf16 ``[m_pad, i]`` buffer the wrapper
 allocates. Their launch counters count calls.
@@ -262,9 +262,9 @@ def _no_kernel(name, device):
 def _launch(name, kernel, rows, probs, gid, pair_src, gate_w, up_w, down_w,
             out, top_k):
     """One call of ``d9d_moe_ffn`` on checked tensors; raises on a launch
-    error. In bf16, kernels 0 (B5) and 2 (B7) run the sm_90 core's two
-    launches through a hidden buffer allocated here and dropped after the
-    call. Counts nothing: each wrapper counts its own calls."""
+    error. In bf16 every kernel runs the sm_90 core's two launches through
+    a hidden buffer allocated here and dropped after the call. Counts
+    nothing: each wrapper counts its own calls."""
     from d9d_tpu_torch.ops import kernel_lib
 
     code = check_ffn_inputs(name, rows, gate_w, up_w, down_w, probs, gid,
@@ -276,7 +276,7 @@ def _launch(name, kernel, rows, probs, gid, pair_src, gate_w, up_w, down_w,
             f"{name}: layout of {bm}-row tiles; the kernel takes "
             f"{kernel_block_m(rows.dtype, h, inter)} in {rows.dtype}")
     hidden = None
-    if rows.dtype == torch.bfloat16 and kernel != 1:
+    if rows.dtype == torch.bfloat16:
         hidden = torch.empty((pair_src.shape[0], inter), dtype=rows.dtype,
                              device=rows.device)
     lib = kernel_lib.load()
@@ -330,9 +330,11 @@ def _check_gather_shapes(name, x, probs_flat, top_k):
 def moe_ffn_gather(x, probs_flat, gid, pair_src, gate_w, up_w, down_w, *,
                    top_k: int):
     """Gather kernel (B6) → aligned ``y [m_pad, h]`` (see
-    :func:`moe_ffn_gather_plain`): kernel 1 of ``d9d_moe_ffn`` reads each
-    row straight from ``x`` by ``pair_src``. Counter:
-    ``moe_ffn_gather.launches``."""
+    :func:`moe_ffn_gather_plain`): kernel 1 of ``d9d_moe_ffn`` (bf16: the
+    sm_90 core's gathering gate-up launch, then its down launch, which
+    stores ``y`` as B5's does and writes the zeros of all-padding tiles)
+    reads each row straight from ``x`` by ``pair_src`` and its prob from
+    ``probs_flat``. Counter: ``moe_ffn_gather.launches``, one per call."""
     if x.device.type == "cpu":
         moe_ffn_gather.plain_calls += 1
         return moe_ffn_gather_plain(x, probs_flat, gid, pair_src, gate_w,

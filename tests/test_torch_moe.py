@@ -188,7 +188,10 @@ def test_moe_layer_matches_jax_and_counts_tokens_per_expert(case):
 
 
 def test_unported_layer_and_config_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    """What still raises: expert parallelism (ROADMAP A3), GDN, MLA and the
+    remat policies other than "full". KV-cache decode is ported and builds
+    a model that makes its cache."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         MoELayer(64, 64, 8, 2, ep_axes=("ep",), device="cpu")
     with pytest.raises(ValueError, match="moe_ffn"):
         MoELayer(64, 64, 8, 2, moe_ffn="xla", device="cpu")
@@ -203,8 +206,13 @@ def test_unported_layer_and_config_options_raise():
     with pytest.raises(NotImplementedError, match="remat_policy"):
         Qwen3MoeCausalLM(dataclasses.replace(
             base, remat=True, remat_policy="save_expensive"), device="cpu")
-    with pytest.raises(NotImplementedError, match="decode"):
-        Qwen3MoeCausalLM(base, decode_max_length=64, device="cpu")
+    for field in ("ep_axes", "moe_token_axes"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            Qwen3MoeCausalLM(dataclasses.replace(base, **{field: ("ep",)}),
+                             device="cpu")
+    served = Qwen3MoeCausalLM(base, decode_max_length=64, device="cpu")
+    cache = served.init_cache(2)
+    assert cache.keys[0].shape[-2] == 64
 
 
 def test_grouped_swiglu_matches_jax():

@@ -1,5 +1,6 @@
 """The Hopper core of the bf16 expert FFN (``csrc/moe_ffn_sm90.cuh``: B5, the
-aligned kernel, and B7, the gather + combine kernel) emulated on the CPU.
+aligned kernel, B6, the gather kernel, and B7, the gather + combine kernel)
+emulated on the CPU.
 
 The core cannot run here, so its arithmetic is written out in PyTorch, as
 the kernels do it, and held to the MoE rule of ``chip_smoke.py`` (bf16:
@@ -13,6 +14,9 @@ layout of 128-row tiles the core takes:
   one 64-deep k-slice of i after another (the down launch);
 - B5: ``y * prob`` rounded once to bf16; a tile whose first row is padding
   comes out as zeros;
+- B6: rows gathered from ``x`` by ``pair_src`` (pad rows zero), the prob
+  read as ``probs[pair_src]``, then B5's epilogue: on one routing its bits
+  are B5's;
 - B7: each real row's ``y * prob`` added in fp32 into its token's row, then
   one cast to bf16.
 
@@ -96,6 +100,29 @@ def emulate_aligned(a, probs, gid, pair_src, wg, wu, wd, **kw):
     """B5 on the core: ``y * prob`` rounded once; zeros in padding tiles."""
     y = _emulate_y(a, gid, pair_src, wg, wu, wd, **kw)
     return (y * probs[:, None].float()).to(BF16)
+
+
+def emulate_gather(x, probs_flat, gid, pair_src, wg, wu, wd, *, top_k, **kw):
+    """B6 on the core, gathering as the kernels do and not through the
+    wrapper's helper: in each real tile the gate-up block copies row r from
+    token ``pair_src[r] // top_k`` and zero-fills a pad row; the down block
+    reads the prob as ``probs_flat[pair_src[r]]``, 0 for a pad row; then
+    B5's products and epilogue. All-padding tiles are skipped."""
+    m_pad, h = pair_src.shape[0], x.shape[1]
+    a = torch.zeros((m_pad, h), dtype=x.dtype)
+    pr = torch.zeros(m_pad)
+    for _t, rows, real in _tiles(pair_src):
+        if not real:
+            continue
+        src = pair_src[rows].to(torch.int64)
+        ok = src >= 0
+        a_t = torch.zeros((BM, h), dtype=x.dtype)
+        a_t[ok] = x[src[ok] // top_k]
+        p_t = torch.zeros(BM)
+        p_t[ok] = probs_flat.float()[src[ok]]
+        a[rows], pr[rows] = a_t, p_t
+    y = _emulate_y(a, gid, pair_src, wg, wu, wd, **kw)
+    return (y * pr[:, None]).to(BF16)
 
 
 def emulate_gather_combine(x, probs_flat, gid, pair_src, wg, wu, wd, *,
@@ -198,6 +225,46 @@ def test_aligned_core_emulation_within_the_rule(case):
     assert pad, "the layout of a routing always ends in padding tiles"
     for rows in pad:
         assert not got[rows].float().any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_gather_core_emulation_within_the_rule(case):
+    x, w, probs, _ids, ts, js, tx, tw, k, e = _problem(case, seed=4)
+    meta = tmf.aligned_metadata(ts, e, BM)
+    pf = torch.from_numpy(probs).reshape(-1)
+    got = emulate_gather(tx, pf, meta.gid, meta.pair_src, *tw, top_k=k)
+    plain = tmf.moe_ffn_gather_plain(tx, pf, meta.gid, meta.pair_src, *tw,
+                                     top_k=k)
+    assert got.shape == plain.shape == (meta.m_pad, x.shape[1])
+    assert _use(got, plain) <= 1.0
+
+    jmeta = jmp.aligned_metadata(js, e, BM)
+    jw = [jnp.asarray(v).astype(jnp.bfloat16) for v in w]
+    want = jmp._fused_gather_call(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(probs).reshape(-1, 1),
+        jmeta.gid, jmeta.pair_src, *jw, block_m=BM, top_k=k, interpret=True)
+    assert _use(got, torch.from_numpy(np.array(want.astype(jnp.float32))))\
+        <= 1.0
+    # the down launch writes the zeros of all-padding tiles (y is allocated
+    # uninitialised)
+    for _t, rows, real in _tiles(meta.pair_src):
+        if not real:
+            assert not got[rows].float().any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_gather_core_emulation_equals_aligned_bit_for_bit(case):
+    """B6's own gather (rows by token, probs read through pair_src, tile by
+    tile) builds the aligned rows and probs that the plain gather version
+    builds for B5's buffer, so on one routing the emulated B6 gives the
+    emulated B5's bits, as chip_smoke requires of the kernels."""
+    _x, _w, probs, _ids, ts, _js, tx, tw, k, e = _problem(case, seed=5)
+    meta = tmf.aligned_metadata(ts, e, BM)
+    pf = torch.from_numpy(probs).reshape(-1)
+    a, pa = tmf._gathered_rows(tx, pf, meta.pair_src, k)
+    aligned = emulate_aligned(a, pa, meta.gid, meta.pair_src, *tw)
+    gather = emulate_gather(tx, pf, meta.gid, meta.pair_src, *tw, top_k=k)
+    assert torch.equal(gather, aligned)
 
 
 @pytest.mark.parametrize("case", CASES)
