@@ -33,7 +33,9 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the stochastic-rounding kernel bit for bit at 1, 1000003, 4096 x 12288
    and 151936 x 4096 elements (±0, denormals, ±inf, NaNs, the largest
    finite values), with its rule checked at 2^24 draws per fraction and a
-   round-to-nearest negative control; the flash kernels at global offsets
+   round-to-nearest negative control, and on FSDP's pieces at their index
+   offsets (row and column pieces, bit for bit against the plain version
+   and against the same elements of the whole tensor's rounding); the flash kernels at global offsets
    (B4, the ring-attention block) at Qwen3-8B heads on 4096-token chunks —
    diagonal, past, future, a straddling window, segments, non-causal with a
    negative shift; forward and the three backward kernels with cotangents
@@ -86,7 +88,17 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    ``Trainer.train`` steps at 2 of 36 layers on 16384-token sequences
    (bf16 compute, fp32 parameters, full remat, AdamW); every attention goes
    through the ring and B4. Two ranks time-share one card: the phase shows
-   correctness and times, not context-parallel scaling.
+   correctness and times, not context-parallel scaling;
+10. data parallelism — two child processes (``--dp-worker``) share the card
+   over gloo at ``dp_shard = 2`` under ``fsdp_plan`` (each rank initializes
+   and holds only its pieces of the parameters): 2 fp32 steps of Qwen3-8B
+   widths at 1 layer and 2 steps with bf16
+   parameters under ``StochasticAdamW`` (B10 on the pieces), each against
+   the same steps in this process on one device, then 2 ``Trainer.train``
+   steps at 2 of 36 layers (bf16 compute, fp32 parameters, full remat,
+   AdamW) under the host profiler: ms per step, peak memory per rank and
+   the share of the step's host time in FSDP's collective regions. Like
+   phase 9 it shows correctness and times, not data-parallel scaling.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -127,6 +139,37 @@ def time_ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
+def _launches_per_call(e, calls):
+    """A profiled kernel's launches per call: its record count over
+    ``calls``, rounded to whole launches where it is at least one half (a
+    kernel of every call; the profiler may have lost a record)."""
+    launches = e.count / calls
+    return round(launches) if launches >= 0.5 else launches
+
+
+def _profile_kernels(fn, calls, activities=None):
+    """``(profiler, CUDA kernel rows)`` of one window around ``fn()``
+    (``calls`` calls). The window opens with a marker kernel
+    (``torch.cuda._sleep``, left out of the rows), since the profiler can
+    drop the record of a window's first kernel; a window in which some
+    kernel's record count is not a whole number of launches a call is
+    profiled again, up to three windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
+        if all(e.count % calls == 0 for e in kernels):
+            break
+    return prof, kernels
+
+
 def device_time(fn, kernel_tag, iters=20, warmup=3):
     """Device time per call of ``fn`` read from ``torch.profiler`` over
     ``iters`` calls: ``(ms of the kernels whose name holds ``kernel_tag``,
@@ -142,31 +185,21 @@ def device_time(fn, kernel_tag, iters=20, warmup=3):
     call (the record count over ``iters``, rounded where it is at least one
     half), so a missed record does not lower it; ``calls`` is the record
     count over ``iters``, as read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and "spin_kernel" not in e.key]
-        if all(e.count % iters == 0 for e in kernels):
-            break
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    _, kernels = _profile_kernels(calls, iters)
     if sum(e.self_device_time_total for e in kernels) <= 0:
         return None, None, None
 
     def ms_per_call(e):
-        launches = e.count / iters
-        if launches >= 0.5:  # a kernel of every call: whole launches
-            launches = round(launches)
-        return e.self_device_time_total / 1e3 / e.count * launches
+        return (e.self_device_time_total / 1e3 / e.count
+                * _launches_per_call(e, iters))
 
     per_call = {e.key[:72]: {"calls": e.count / iters, "ms": ms_per_call(e)}
                 for e in kernels}
@@ -1985,6 +2018,67 @@ def _sr_share_ok(fn):
     return ok, shares
 
 
+# FSDP's pieces at Qwen3-8B widths and dp_shard 2: the gate/up projections
+# [12288, 4096] cut on dim 1 (columns: one run of the flat index per row),
+# the embedding [151936, 4096] cut on dim 0 (rows: one run); and narrow
+# shapes whose pieces' rows are not a multiple of 4 (the element-wise
+# strided path), cut in 3 as torch.chunk cuts them
+SR_SHARD_CASES = (((12288, 4096), 1, 2), ((151936, 4096), 0, 2),
+                  ((1001, 37), 1, 3), ((1001, 37), 0, 3))
+
+
+def _sr_shard_cases(gen, seed, bits):
+    """B10 on pieces at their index offsets: each piece bit for bit
+    against the plain version at the same offsets, and against the same
+    elements of the whole tensor's rounding; the widest column piece
+    timed."""
+    from d9d_tpu_torch.ops.stochastic import (
+        shard_index,
+        stochastic_round_to_bf16,
+        stochastic_round_to_bf16_plain,
+    )
+
+    cases, timed = [], None
+    for shape, dim, parts in SR_SHARD_CASES:
+        x = _sr_input(shape, gen)
+        whole = bits(stochastic_round_to_bf16(x, seed))
+        n = shape[dim]
+        chunk = -(-n // parts)
+        for r in range(parts):
+            a = min(r * chunk, n)
+            length = min(chunk, n - a)
+            piece = x.narrow(dim, a, length).contiguous()
+            off, cols, stride = shard_index(shape, [(dim, a, length)])
+            kw = dict(index_offset=off, cols=cols, row_stride=stride)
+            got = bits(stochastic_round_to_bf16(piece, seed, **kw))
+            torch.cuda.synchronize()
+            vs_plain = int((got != bits(stochastic_round_to_bf16_plain(
+                piece, seed, **kw))).sum())
+            vs_whole = int((got != whole.narrow(dim, a, length)).sum())
+            if vs_plain or vs_whole:
+                raise AssertionError(
+                    f"stochastic_round piece {r} of {list(shape)} on dim "
+                    f"{dim}: {vs_plain} bits differ from the plain version, "
+                    f"{vs_whole} from the whole tensor's rounding")
+            cases.append({"shape": list(shape), "dim": dim, "piece": r,
+                          "index": [off, cols, stride],
+                          "differing_bits_vs_plain": vs_plain,
+                          "differing_bits_vs_whole": vs_whole})
+            if timed is None and dim == 1:
+                m = piece.numel()
+                timed = {"shape": list(piece.shape), "index": [off, cols,
+                                                                 stride],
+                         "ms": time_ms(lambda: stochastic_round_to_bf16(
+                             piece, seed, **kw), iters=10, warmup=2),
+                         "whole_ms": time_ms(lambda: stochastic_round_to_bf16(
+                             piece, seed), iters=10, warmup=2),
+                         "bound_ms": 1e3 * 6 * m / H100_BYTES_PER_S}
+            del piece, got
+        del x, whole
+        torch.cuda.empty_cache()
+    return cases, timed
+
+
 def check_stochastic_round(gen):
     from d9d_tpu_torch.ops.stochastic import (
         fold_seed,
@@ -2070,6 +2164,7 @@ def check_stochastic_round(gen):
         raise AssertionError(f"stochastic_round seeds: same seed same bits "
                              f"{same}, share differing {other}")
 
+    shard_cases, shard_timed = _sr_shard_cases(gen, seed, bits)
     main = timed[(4096, 12288)]
     return {
         "name": "stochastic_round", "route": "cuda",
@@ -2081,8 +2176,11 @@ def check_stochastic_round(gen):
         "library_ms": None, "cast_ms": main["cast_ms"],
         "ms_embedding_leaf": timed[(151936, 4096)]["ms"],
         "bound_ms_embedding_leaf": timed[(151936, 4096)]["bound_ms"],
+        "ms_column_piece": shard_timed["ms"],
+        "bound_ms_column_piece": shard_timed["bound_ms"],
     }, {
-        "cases": cases, "tolerance": "bitwise",
+        "cases": cases, "shard_cases": shard_cases,
+        "column_piece_timing": shard_timed, "tolerance": "bitwise",
         "timed_shape": [4096, 12288],
         "shares_up": shares, "share_tol": SR_SHARE_TOL, "draws": SR_DRAWS,
         "round_to_nearest_control_shares": rtn_shares,
@@ -2811,7 +2909,9 @@ def phase_full_width_moe():
 
 def profile_decode_steps(model, batch=8, steps=4, random_tokens=False):
     """Where a full-width decode step spends its time: ``steps`` single-token
-    steps of a batch-8 cache at ~1k tokens under ``torch.profiler``. Reports
+    steps of a batch-8 cache at ~1k tokens under ``torch.profiler`` (a
+    window opened by a marker kernel, kernels counted in whole launches a
+    step: :func:`_profile_kernels`). Reports
     the wall time per step (taken without the profiler), the device's busy
     time per step (sum of kernel times) and the share of the step the device
     sat idle; null where the
@@ -2824,7 +2924,7 @@ def profile_decode_steps(model, batch=8, steps=4, random_tokens=False):
     import warnings
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from d9d_tpu_torch.ops.moe import group_sizes_on_host
 
@@ -2862,18 +2962,27 @@ def profile_decode_steps(model, batch=8, steps=4, random_tokens=False):
     # the mode's own notice ("... is a prototype feature ...") is no sync
     syncs = [str(w.message)[:120] for w in caught
              if "called a synchronizing" in str(w.message)]
-    cache.index.fill_(1000)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        cache.index.fill_(1000)
         run()
-    # device rows only: an operator row repeats its kernels' device time
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    host_ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+
+    # device rows only: an operator row repeats its kernels' device time;
+    # each kernel counted in whole launches a step, its time as its mean
+    # time a recorded launch times those launches
+    prof, kernels = _profile_kernels(
+        window, steps, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    host_ops = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU
                        and e.key.startswith("aten::")),
                       key=lambda e: -e.count)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    per_step = {e.key: _launches_per_call(e, steps) for e in kernels}
+
+    def ms_per_step(e):
+        return e.self_device_time_total / 1e3 / e.count * per_step[e.key]
+
+    busy_ms = sum(ms_per_step(e) for e in kernels)
+    top = sorted(kernels, key=lambda e: -ms_per_step(e))
     out = {
         "what": f"{steps} decode steps, batch {batch}, cache at 1000 tokens",
         "wall_ms_per_step": 1e3 * wall / steps,
@@ -2886,29 +2995,25 @@ def profile_decode_steps(model, batch=8, steps=4, random_tokens=False):
             {"name": e.key, "calls_per_step": e.count / steps}
             for e in host_ops[:12]],
     }
-    if busy_us > 0:
-        busy_ms = busy_us / 1e3 / steps
+    if busy_ms > 0:
         out.update(
             device_busy_ms_per_step=busy_ms,
             device_idle_share=max(0.0, 1.0 - busy_ms / (1e3 * wall / steps)),
-            device_kernels_per_step=n_kernels / steps,
+            device_kernels_per_step=sum(per_step.values()),
             # the decode kernels of a step by name: one per layer, and no
             # split combine, is the one-launch contract of the wrappers
             decode_kernels_per_step={
-                e.key[:72]: e.count / steps for e in kernels
+                e.key[:72]: per_step[e.key] for e in kernels
                 if DECODE_KERNEL_TAG in e.key},
             # the expert-FFN kernels (none in a dense model)
             moe_kernels_per_step={
-                e.key[:72]: {"calls": e.count / steps,
-                             "ms": e.self_device_time_total / 1e3 / steps}
+                e.key[:72]: {"calls": per_step[e.key], "ms": ms_per_step(e)}
                 for e in kernels if MOE_KERNEL_TAG in e.key},
             moe_device_ms_per_step=sum(
-                e.self_device_time_total for e in kernels
-                if MOE_KERNEL_TAG in e.key) / 1e3 / steps,
+                ms_per_step(e) for e in kernels if MOE_KERNEL_TAG in e.key),
             top_device_ops=[
-                {"name": e.key[:60],
-                 "ms_per_step": e.self_device_time_total / 1e3 / steps,
-                 "calls_per_step": e.count / steps}
+                {"name": e.key[:60], "ms_per_step": ms_per_step(e),
+                 "calls_per_step": per_step[e.key]}
                 for e in top[:8]],
         )
     return out
@@ -3935,32 +4040,15 @@ def cp_worker(rank, world, rdzv, backend):
         shutdown_distributed()
 
 
-def phase_cp_train(ranks=CP_RANKS, backend="gloo",
-                   timeout_s=CP_CHILD_TIMEOUT_S):
-    """Phase 9 in the parent: the one-process reference step, then
-    ``ranks`` child processes of this script on the card(s); their lines
-    are checked and re-emitted. Returns the launches of the main run (all
-    ranks)."""
-    import gc
+def _spawn_ranks(flag, ranks, backend, timeout_s):
+    """Run ``ranks`` child processes of this script (``flag RANK RANKS
+    RENDEZVOUS BACKEND``) on the card(s) and wait for them; re-emit their
+    JSON lines and return them, one list per rank. A rank that exits
+    non-zero fails the phase."""
     import json as _json
     import os
     import tempfile
 
-    from d9d_tpu_torch.core import MeshParameters
-
-    mode = compute_mode()
-    if backend == "gloo" and mode.lower().startswith("exclusive"):
-        raise AssertionError(
-            f"phase 9 needs {ranks} processes on the card; its compute "
-            f"mode is {mode}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    trainer = _cp_compare_trainer(MeshParameters().build())
-    ref = trainer.train()[0]
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
     with tempfile.TemporaryDirectory() as tmp:
         procs, logs = [], []
@@ -3969,7 +4057,7 @@ def phase_cp_train(ranks=CP_RANKS, backend="gloo",
             err = open(os.path.join(tmp, f"rank{r}.err"), "w+")
             logs.append((out, err))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--cp-worker",
+                [sys.executable, os.path.abspath(__file__), flag,
                  str(r), str(ranks), f"file://{tmp}/rendezvous", backend],
                 stdout=out, stderr=err, env=env,
                 cwd=os.path.dirname(os.path.abspath(__file__))))
@@ -3992,13 +4080,40 @@ def phase_cp_train(ranks=CP_RANKS, backend="gloo",
     for r, (p, (out, err)) in enumerate(zip(procs, texts)):
         if p.returncode != 0:
             raise AssertionError(
-                f"cp rank {r} exited {p.returncode}:\n{out[-2000:]}\n"
+                f"{flag} rank {r} exited {p.returncode}:\n{out[-2000:]}\n"
                 f"{err[-4000:]}")
     lines = [[_json.loads(x) for x in out.splitlines() if x.startswith("{")]
              for out, _ in texts]
     for rank_lines in lines:
         for obj in rank_lines:
             say(**obj)
+    return lines
+
+
+def phase_cp_train(ranks=CP_RANKS, backend="gloo",
+                   timeout_s=CP_CHILD_TIMEOUT_S):
+    """Phase 9 in the parent: the one-process reference step, then
+    ``ranks`` child processes of this script on the card(s); their lines
+    are checked and re-emitted. Returns the launches of the main run (all
+    ranks)."""
+    import gc
+
+    from d9d_tpu_torch.core import MeshParameters
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 9 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = _cp_compare_trainer(MeshParameters().build())
+    ref = trainer.train()[0]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lines = _spawn_ranks("--cp-worker", ranks, backend, timeout_s)
 
     def entry(r, name):
         return next(o for o in lines[r] if o.get("entry") == name)
@@ -4041,6 +4156,294 @@ def phase_cp_train(ranks=CP_RANKS, backend="gloo",
     return {"flash_block": sum(m["counters"]["flash_block"] for m in main)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel training on the card (fsdp_plan, B10 on pieces)
+#
+# Two ranks share the one card over gloo at ``dp_shard = 2``, as phase 9's
+# do; gloo takes CUDA tensors in FSDP's all-gather and reduce-scatter itself
+# (it copies them through host memory). The phase holds the sharded runs to
+# the one-process trainer on the same seeded weights and batches and gives
+# their times; it measures no data-parallel scaling. On a machine with N
+# cards, ``python3 chip_smoke.py --dp-only nccl N`` runs this phase alone
+# with one card per rank over NCCL.
+
+DP_RANKS = 2
+DP_CHILD_TIMEOUT_S = 600
+DP_TRAIN_TOL = 1e-4  # fp32 compute: sums in other orders (rows split)
+DP_ROUNDED_TOL = 2.0 ** -8  # bf16 parameters: one bf16 ulp (_dp_tolerance)
+# (layers of Qwen3-8B's 36, tokens a row, steps, microbatches a step,
+# compute dtype, parameter dtype). Over gloo on one card a step of any of
+# them takes ≈ 15–20 s, nearly all of it FSDP's collectives moving the
+# 5 GB of fp32 vocab tables (PR 16's first run: 19.8 s a main step, 96 %
+# in the collectives), and a second microbatch gathers them again; the
+# step counts keep the phase near 110 s. The CPU tests hold the gradient
+# accumulation over microbatches (tests/test_torch_dp_train.py).
+DP_RUNS = {
+    "compare": dict(layers=1, seq=2048, steps=2, microbatches=1,
+                    dtype=torch.float32, param_dtype=torch.float32),
+    "bf16_params": dict(layers=1, seq=2048, steps=2, microbatches=1,
+                        dtype=torch.float32, param_dtype=torch.bfloat16),
+    "main": dict(layers=2, seq=4096, steps=2, microbatches=1,
+                 dtype=torch.bfloat16, param_dtype=torch.float32),
+}
+# FSDP's collective regions on the host thread: all-gather issue and copy
+# out, reduce-scatter issue and wait
+DP_COLLECTIVE_REGIONS = ("FSDP::all_gather", "FSDP::post_backward_reduce",
+                         "FSDP::post_backward_rs_wait")
+
+
+def _dp_tolerance(tag, step, key):
+    """The rule of phase 10's comparisons: fp32 runs within DP_TRAIN_TOL
+    (sums in other orders); with bf16 parameters the first loss too (the
+    same weights, fp32 compute), the rest within one bf16 ulp, as each
+    rank's gradient of its rows is rounded to bf16 before the sum where the
+    one-process run rounds that of all rows, and the roundings that follow
+    start from those sums."""
+    if tag == "compare" or (step == 0 and key == "loss"):
+        return DP_TRAIN_TOL
+    return DP_ROUNDED_TOL
+
+
+def _dp_trainer(ctx, ranks, layers, seq, steps, microbatches, dtype,
+                param_dtype, seed=5):
+    """A Trainer at Qwen3-8B widths and ``layers`` layers, full remat, one
+    row a rank and microbatch (``ranks`` rows a microbatch whatever the
+    mesh), weights drawn from ``seed``; ``fsdp_plan``, AdamW for fp32
+    parameters and StochasticAdamW for bf16 ones."""
+    import dataclasses
+
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3DenseConfig
+    from d9d_tpu_torch.parallel import fsdp_plan
+
+    Provider, schedule = _train_parts()
+
+    class Planned(Provider):
+        def build_plan(self, ctx):
+            return fsdp_plan(ctx)
+
+    cfg = dataclasses.replace(Qwen3DenseConfig.qwen3_8b(), num_layers=layers)
+    gbs = ranks * microbatches
+    bf16 = param_dtype == torch.bfloat16
+    return Trainer(
+        ctx=ctx,
+        config=TrainerConfig(global_batch_size=gbs, microbatch_size=ranks,
+                             seq_len=seq, total_steps=steps, log_every=1,
+                             max_grad_norm=1.0),
+        model_provider=Planned(cfg, dtype, False, seed=seed,
+                               param_dtype=param_dtype),
+        dataset_provider=_Batches(cfg.vocab_size, steps, gbs, seq,
+                                  seed=seed + 1, loss_mask=True),
+        task=CausalLMTask(),
+        optimizer_provider=(_stochastic_adamw_provider(weight_decay=0.1)
+                            if bf16 else AdamWProvider(weight_decay=0.1)),
+        learning_rate=schedule(3e-4, steps) if steps > 2 else 3e-4)
+
+
+def _collective_ms(prof):
+    """Host ms in FSDP's collective regions, by region name."""
+    out = {}
+    for e in prof.key_averages():
+        for region in DP_COLLECTIVE_REGIONS:
+            if e.key.startswith(region):
+                out[region] = out.get(region, 0.0) + e.cpu_time_total / 1e3
+    return out
+
+
+def dp_worker(rank, world, rdzv, backend):
+    """One rank of phase 10 (``chip_smoke.py --dp-worker RANK WORLD
+    RENDEZVOUS BACKEND``): the fp32 comparison run, the bf16-parameter run,
+    then the main run under the host profiler; every result is a JSON line
+    tagged with the rank."""
+    import gc
+    import math
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.ops import kernel_lib
+    from d9d_tpu_torch.parallel.shards import local_tensor
+
+    def say_rank(**obj):
+        say(rank=rank, phase="dp_train", **obj)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    try:
+        ctx = MeshParameters(dp_shard=world).build(_cp_devices(world, backend))
+        for tag in ("compare", "bf16_params"):
+            reset_counters()
+            t0 = time.perf_counter()
+            trainer = _dp_trainer(ctx, world, **DP_RUNS[tag])
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            say_rank(entry=tag, steps=[{"loss": h["loss"],
+                                        "grad_norm": h["grad_norm"]}
+                                       for h in hist],
+                     seconds=time.perf_counter() - t0,
+                     counters=read_counters())
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        run = DP_RUNS["main"]
+        torch.cuda.reset_peak_memory_stats()
+        _cp_reset_counters()
+        t0 = time.perf_counter()
+        trainer = _dp_trainer(ctx, world, **run)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        _cp_reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        got = _cp_counters()
+        vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+        if len(hist) != run["steps"] or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"dp rank {rank}: bad history {vals}")
+        walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                       for a, b in zip(hist, hist[1:])]
+        regions = _collective_ms(prof)
+        with torch.no_grad():
+            pieces = [local_tensor(p) for p in trainer.module.parameters()]
+        say_rank(entry="Trainer.train", model="qwen3_8b",
+                 layers=run["layers"], layers_reduced_from=36,
+                 params=sum(p.numel() for p in trainer.module.parameters()),
+                 params_on_rank=sum(p.numel() for p in pieces),
+                 dp_shard=world, tokens_per_row=run["seq"],
+                 global_tokens=world * run["seq"],
+                 setup={"plan": "fsdp", "param_dtype": "float32",
+                        "dtype": "bfloat16", "remat": "full",
+                        "optimizer": "AdamW", "backend": backend,
+                        "device": str(ctx.device) + (
+                            " (shared)" if backend == "gloo" else "")},
+                 steps=[{"step": h["step"], "loss": h["loss"],
+                         "grad_norm": h["grad_norm"]} for h in hist],
+                 ms_per_step=1e3 * statistics.median(walls[1:]),
+                 ms_per_step_is_of="the steps after the first",
+                 ms_per_step_all=[1e3 * w for w in walls],
+                 ms_per_step_is=(
+                     "two ranks time-share one card; FSDP's collectives "
+                     "cross loopback TCP through host memory, under the "
+                     "host profiler: no DP throughput" if backend == "gloo"
+                     else f"one card per rank over {backend}, under the "
+                          f"host profiler"),
+                 collective_host_ms=regions,
+                 collective_share_of_steps=sum(regions.values())
+                 / (1e3 * train_s),
+                 build_seconds=build_s,
+                 build_peak_memory_bytes=build_peak,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 counters=got)
+        del trainer, pieces
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+
+
+def phase_dp_train(ranks=DP_RANKS, backend="gloo",
+                   timeout_s=DP_CHILD_TIMEOUT_S):
+    """Phase 10 in the parent: the one-process reference runs, then
+    ``ranks`` child processes of this script on the card(s); their lines
+    are checked and re-emitted. Returns the launches of the sharded runs
+    (all ranks)."""
+    import gc
+
+    from d9d_tpu_torch.core import MeshParameters
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 10 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {}
+    for tag in ("compare", "bf16_params"):
+        trainer = _dp_trainer(MeshParameters().build(), ranks,
+                              **DP_RUNS[tag])
+        ref[tag] = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                    for h in trainer.train()]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lines = _spawn_ranks("--dp-worker", ranks, backend, timeout_s)
+
+    def entry(r, name):
+        return next(o for o in lines[r] if o.get("entry") == name)
+
+    runs = {tag: [entry(r, tag) for r in range(ranks)]
+            for tag in ("compare", "bf16_params", "Trainer.train")}
+    for tag, per_rank in runs.items():
+        if any(o["steps"] != per_rank[0]["steps"] for o in per_rank):
+            raise AssertionError(f"dp ranks disagree in {tag}: {per_rank}")
+    rel = {}
+    for tag in ("compare", "bf16_params"):
+        got = runs[tag][0]["steps"]
+        rel[tag] = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                     for k in ("loss", "grad_norm")}
+                    for g, w in zip(got, ref[tag])]
+        bad = [(i, k, v) for i, r in enumerate(rel[tag]) for k, v in r.items()
+               if v > _dp_tolerance(tag, i, k)]
+        if len(got) != len(ref[tag]) or bad:
+            raise AssertionError(
+                f"dp {tag} vs one process: {rel[tag]}, over the rule: {bad}")
+    run = DP_RUNS["main"]
+    per_fwd = run["steps"] * run["layers"] * 2  # remat: twice a layer
+    per_bwd = run["steps"] * run["layers"]
+    for r, m in enumerate(runs["Trainer.train"]):
+        c = m["counters"]
+        want = {"flash_fwd": per_fwd, "flash_bwd_dq": per_bwd,
+                "flash_bwd_dkv": per_bwd, "flash_block": 0,
+                "plain_calls": 0, "eager_calls": 0}
+        if {k: c[k] for k in want} != want:
+            raise AssertionError(f"dp rank {r}: counters {c}, expected {want}")
+    for r, b in enumerate(runs["bf16_params"]):
+        c = b["counters"]
+        if c["stochastic_round"] <= 0 or c["plain_calls"]:
+            raise AssertionError(f"dp rank {r}: bf16 run counters {c}")
+    main = runs["Trainer.train"]
+    say(phase="dp_train", entry="summary", ranks=ranks, backend=backend,
+        torch=torch.__version__,
+        compare={tag: {"one_process": ref[tag],
+                       "sharded": runs[tag][0]["steps"],
+                       "rel_diff": rel[tag]} for tag in ref},
+        tolerance={"fp32": DP_TRAIN_TOL, "bf16_params": {
+            "step_1_loss": DP_TRAIN_TOL, "other": DP_ROUNDED_TOL}},
+        runs={k: {kk: str(vv) for kk, vv in v.items()}
+              for k, v in DP_RUNS.items()},
+        losses=[s_["loss"] for s_ in main[0]["steps"]],
+        ms_per_step=[m["ms_per_step"] for m in main],
+        peak_memory_gb=[m["peak_memory_bytes"] / 1e9 for m in main],
+        collective_share_of_steps=[m["collective_share_of_steps"]
+                                   for m in main],
+        ranks_equal=True, seconds=time.perf_counter() - t0)
+    launches = {}
+    for tag in ("bf16_params", "Trainer.train"):
+        for o in runs[tag]:
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "stochastic_round"):
+                launches[k] = launches.get(k, 0) + o["counters"][k]
+    return launches
+
+
 def main():
     import gc
 
@@ -4061,7 +4464,8 @@ def main():
     torch.cuda.empty_cache()
     for phase in (phase_full_width_moe, phase_full_width_train,
                   phase_full_width_train_moe,
-                  phase_full_width_train_bf16, phase_cp_train):
+                  phase_full_width_train_bf16, phase_cp_train,
+                  phase_dp_train):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()
@@ -4084,6 +4488,15 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cp-worker"]:
         cp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    elif sys.argv[1:2] == ["--dp-only"]:
+        # phase 10 alone: python3 chip_smoke.py --dp-only nccl 4
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="dp_train", launches=phase_dp_train(
+            int(sys.argv[3]), sys.argv[2], timeout_s=300))
     elif sys.argv[1:2] == ["--cp-only"]:
         # phase 9 alone: python3 chip_smoke.py --cp-only nccl 4
         print(phase_device(), flush=True)

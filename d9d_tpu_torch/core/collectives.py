@@ -1,7 +1,12 @@
-"""Collectives over a process group (a subset of
+"""Collectives over a process group (counterpart of
 ``d9d_tpu/core/collectives.py``): the sum all-reduce of a list of tensors
 and the broadcast of a list of tensors from the group's rank 0, both in
-place.
+place; and the host collectives of metrics and objects
+(:func:`host_allreduce`, :func:`host_allreduce_tree`,
+:func:`host_allgather_object`, :func:`host_broadcast_object`,
+:func:`allgather_variadic`), which take and return numpy arrays or Python
+objects. ``group=None`` means the default group; with no process group, or
+a group of one, the host collectives return their input.
 
 The JAX package names mesh axes inside ``shard_map``; the port names a
 ``torch.distributed`` group. Tensors travel in buckets of at most
@@ -13,8 +18,12 @@ the device tensors cross through the host. The backend of the group
 decides, as set by the caller of ``init_distributed``; nothing falls back.
 """
 
+import math
 import time
+from enum import Enum
+from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -137,5 +146,100 @@ def broadcast(tensors: list[torch.Tensor], group=None, src: int = 0) -> None:
 broadcast.host_staged_bytes = 0
 
 
-__all__ = ["BUCKET_BYTES", "all_reduce_sum", "broadcast", "staging_buffer",
+class ReduceOp(str, Enum):
+    # no 'avg': averaging is not associative across uneven shards
+    sum = "sum"
+    max = "max"
+    min = "min"
+
+
+_DIST_OP = {ReduceOp.sum: dist.ReduceOp.SUM, ReduceOp.max: dist.ReduceOp.MAX,
+            ReduceOp.min: dist.ReduceOp.MIN}
+
+
+def _single(group) -> bool:
+    return not dist.is_initialized() or dist.get_world_size(group) == 1
+
+
+def _backend_device(group) -> torch.device:
+    """Where the group's backend takes host collectives' tensors: the
+    current card for NCCL, host memory for gloo."""
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def host_allreduce(value, op: ReduceOp = ReduceOp.sum,
+                   group=None) -> np.ndarray:
+    """Reduce a host array over ``group``; every rank passes an array of
+    the same shape and dtype."""
+    value = np.asarray(value)
+    if _single(group):
+        return value
+    t = torch.from_numpy(np.ascontiguousarray(value)).to(
+        _backend_device(group))
+    dist.all_reduce(t, op=_DIST_OP[ReduceOp(op)], group=group)
+    return t.cpu().numpy()
+
+
+def host_allreduce_tree(tree, op: ReduceOp = ReduceOp.sum, group=None):
+    """:func:`host_allreduce` over every leaf of nested dicts, lists and
+    tuples."""
+    if isinstance(tree, dict):
+        return {k: host_allreduce_tree(v, op, group) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_allreduce_tree(v, op, group) for v in tree)
+    return host_allreduce(tree, op, group)
+
+
+def host_allgather_object(obj: Any, group=None) -> list[Any]:
+    """Every rank's (picklable) ``obj``, in group-rank order."""
+    if _single(group):
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def host_broadcast_object(obj: Any, root: int = 0, group=None) -> Any:
+    """The group rank ``root``'s ``obj`` on every rank (the others may
+    pass ``None``)."""
+    if _single(group):
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=dist.get_global_rank(group or dist.group.WORLD, root),
+        group=group)
+    return box[0]
+
+
+def allgather_variadic(x, group=None) -> list[np.ndarray]:
+    """Every rank's ``[n_i, ...]`` array, whose leading dims differ: shapes
+    are exchanged first, the bytes padded to the longest, gathered in one
+    collective and trimmed. Trailing dims and dtype must agree."""
+    x = np.asarray(x)
+    if _single(group):
+        return [x]
+    meta = host_allgather_object((x.shape, str(x.dtype)), group)
+    if any(s[1:] != x.shape[1:] or d != str(x.dtype) for s, d in meta):
+        raise ValueError(
+            f"allgather_variadic needs matching trailing dims and dtype; "
+            f"got {meta}")
+    sizes = [math.prod(s) * x.dtype.itemsize for s, _ in meta]
+    width = max(max(sizes), 1)
+    payload = np.zeros(width, np.uint8)
+    payload[:sizes[dist.get_rank(group)]] = np.ascontiguousarray(x).view(
+        np.uint8).reshape(-1)
+    place = _backend_device(group)
+    out = torch.empty(len(meta) * width, dtype=torch.uint8, device=place)
+    dist.all_gather_into_tensor(out, torch.from_numpy(payload).to(place),
+                                group=group)
+    rows = out.cpu().numpy().reshape(len(meta), width)
+    return [np.frombuffer(rows[i, :n].tobytes(), dtype=x.dtype).reshape(s)
+            for i, (n, (s, _)) in enumerate(zip(sizes, meta))]
+
+
+__all__ = ["BUCKET_BYTES", "ReduceOp", "all_reduce_sum", "allgather_variadic",
+           "broadcast", "host_allgather_object", "host_allreduce",
+           "host_allreduce_tree", "host_broadcast_object", "staging_buffer",
            "stages_through_host"]

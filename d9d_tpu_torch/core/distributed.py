@@ -12,6 +12,7 @@ stages device tensors through host memory (``core/collectives.py``,
 ``ops/attention/ring.py``): the backend decides that, nothing else does.
 """
 
+import contextlib
 import datetime
 
 import torch.distributed as dist
@@ -62,4 +63,23 @@ def shutdown_distributed() -> None:
     _owns_group = False
 
 
-__all__ = ["init_distributed", "shutdown_distributed"]
+@contextlib.contextmanager
+def main_process_first():
+    """Rank 0 runs the body first; the other ranks wait at a barrier, then
+    run it (the rank-0-first pattern for a download or a cache one process
+    should fill before the rest read it). One process: a plain
+    passthrough."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        yield
+        return
+    if dist.get_rank() == 0:
+        try:
+            yield
+        finally:
+            dist.barrier()
+    else:
+        dist.barrier()
+        yield
+
+
+__all__ = ["init_distributed", "main_process_first", "shutdown_distributed"]

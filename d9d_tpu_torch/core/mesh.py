@@ -1,19 +1,27 @@
 """Device-mesh parameters and context (counterpart of
-``d9d_tpu/core/mesh.py``): one device, or context parallelism over
-processes.
+``d9d_tpu/core/mesh.py``).
 
 The JAX package builds one named mesh over ``(pp, dp_r, dp_s, cp_s, cp_r,
-tp)``. The port has two cases. With every axis of size 1 the context holds
-the one ``torch.device`` the trainer places its model, batches and
-optimizer state on. With ``cp_shard = N > 1`` (and every other axis 1) the
-run is N processes, one rank each of the default process group that
-``core.distributed.init_distributed`` started: the context holds that group
-as the cp group, this rank's index on it, and this rank's device. Any other
-axis larger than 1 raises ``NotImplementedError`` — the rest of the
-multi-device mesh is a later slice (ROADMAP A3, A8).
+tp)``; the port builds the same mesh as a
+``torch.distributed.device_mesh.DeviceMesh`` over the default process group
+(``init_device_mesh``, row-major in that axis order, so rank ``r`` sits at
+the coordinate whose flattened index is ``r``). Each rank is one process
+with one device. The JAX context's axis groups (``dp_axes``,
+``fsdp_axes``, ``grad_reduce_axes``, ...) are tuples of axis names here as
+there; :meth:`MeshContext.group` turns any tuple of them into the process
+group of the flattened sub-mesh and :meth:`MeshContext.coordinate` gives
+this rank's index on it.
+
+A mesh of one rank needs no process group and holds no ``DeviceMesh``:
+every group is ``None`` and every coordinate 0. Of the axes, ``dp_r``,
+``dp_s`` and ``cp_s`` can be larger than 1; ``pp``, ``tp``, ``cp_r`` and
+``ep_shard`` larger than 1 raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 import dataclasses
+import functools
+import math
 from collections.abc import Sequence
 
 import torch
@@ -37,12 +45,39 @@ MESH_AXIS_NAMES: tuple[str, ...] = (
     AXIS_TP,
 )
 
+# axes that may not exceed 1 yet, with the ROADMAP item that ports each
+_UNPORTED_AXES = {"pp": "A8", "tp": "A3.2", "cp_replicate": "A3.2",
+                  "ep_shard": "A3.3"}
+
+
+def _suffix_axes_covering(
+    size: int, axes: Sequence[tuple[str, int]]
+) -> tuple[str, ...]:
+    """The fastest-varying (suffix) axes whose sizes multiply to ``size``;
+    raises if ``size`` does not align with whole-axis boundaries."""
+    if size == 1:
+        return ()
+    prod = 1
+    chosen: list[str] = []
+    for name, s in reversed(list(axes)):
+        if prod >= size:
+            break
+        if s == 1:
+            continue
+        prod *= s
+        chosen.append(name)
+    if prod != size:
+        raise ValueError(
+            f"expert-shard size {size} does not factor into a suffix of mesh "
+            f"axes {list(axes)}; got partial product {prod}"
+        )
+    return tuple(reversed(chosen))
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshParameters:
     """Sizes of every parallelism dimension (the JAX class's fields and
-    validation). The all-ones mesh and the context-parallel one
-    (``cp_shard`` alone larger than 1) can be built."""
+    validation)."""
 
     pp: int = 1
     dp_replicate: int = 1
@@ -65,6 +100,16 @@ class MeshParameters:
                 f"dp_replicate*dp_shard*cp_shard*cp_replicate*tp={non_pp}"
             )
 
+    def as_dict(self) -> dict:
+        """JSON-serializable axis sizes (the JAX checkpoint manifest's mesh
+        block)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MeshParameters":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: int(v) for k, v in d.items() if k in names})
+
     @property
     def axis_sizes(self) -> tuple[int, ...]:
         return (self.pp, self.dp_replicate, self.dp_shard, self.cp_shard,
@@ -72,40 +117,33 @@ class MeshParameters:
 
     @property
     def world_size(self) -> int:
-        n = 1
-        for s in self.axis_sizes:
-            n *= s
-        return n
+        return math.prod(self.axis_sizes)
 
     def build(
         self, devices: "Sequence[torch.device | str] | None" = None
     ) -> "MeshContext":
         """The context over ``devices``: ``None`` means the card (raises
         without one); a list holds one device per rank — tests pass
-        ``["cpu"]``, or ``["cpu"] * N`` for N context-parallel processes —
-        and this rank takes ``devices[rank]``. ``cp_shard > 1`` needs the
-        default process group of exactly ``cp_shard`` ranks
-        (``init_distributed``)."""
-        big = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-               if getattr(self, f.name) > 1 and f.name != "cp_shard"}
-        if big:
-            raise NotImplementedError(
-                f"multi-device meshes are not ported yet (axes {big}); the "
-                f"port trains on one device, or with cp_shard alone over "
-                f"processes"
-            )
-        rank, group = 0, None
-        if self.cp_shard > 1:
+        ``["cpu"] * world_size`` — and this rank takes ``devices[rank]``.
+        More than one rank needs the default process group of exactly
+        ``world_size`` ranks (``init_distributed``)."""
+        for name, item in _UNPORTED_AXES.items():
+            if getattr(self, name) > 1:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)}: meshes with {name} > 1 "
+                    f"are not ported yet (ROADMAP {item})")
+        rank = 0
+        if self.world_size > 1:
             if not dist.is_initialized():
                 raise RuntimeError(
-                    f"cp_shard={self.cp_shard} needs a process group: call "
-                    f"init_distributed(rank=..., world_size={self.cp_shard}, "
-                    f"...) in every process first")
+                    f"a mesh of {self.world_size} ranks needs a process "
+                    f"group: call init_distributed(rank=..., world_size="
+                    f"{self.world_size}, ...) in every process first")
             if dist.get_world_size() != self.world_size:
                 raise RuntimeError(
                     f"mesh of {self.world_size} ranks over a process group "
                     f"of {dist.get_world_size()}")
-            rank, group = dist.get_rank(), dist.group.WORLD
+            rank = dist.get_rank()
         if devices is None:
             device = resolve_device(None)
         else:
@@ -115,28 +153,41 @@ class MeshParameters:
                     f"mesh needs {self.world_size} device(s), one per rank, "
                     f"got {len(devices)}")
             device = resolve_device(devices[rank])
-        if group is not None and device.type == "cuda":
-            # NCCL's point-to-point calls run on the current device
-            torch.cuda.set_device(device)
-        return MeshContext(params=self, device=device, cp_group=group,
-                           cp_rank=rank)
+        mesh = None
+        if self.world_size > 1:
+            if device.type == "cuda":
+                # NCCL's calls run on the current device
+                torch.cuda.set_device(device)
+            from torch.distributed.device_mesh import init_device_mesh
+
+            mesh = init_device_mesh(device.type, self.axis_sizes,
+                                    mesh_dim_names=MESH_AXIS_NAMES)
+        return MeshContext(params=self, device=device, mesh=mesh)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class MeshContext:
-    """A built mesh: this rank's device, the JAX context's axis vocabulary,
-    and for ``cp_shard > 1`` the cp process group (``None`` for one device)
-    and this rank's index on it — rank ``i`` owns sequence positions
-    ``[i·T/cp, (i+1)·T/cp)`` of every batch."""
+    """A built mesh: this rank's device, the ``DeviceMesh`` (``None`` for
+    one rank), and the JAX context's axis-group vocabulary."""
 
     params: MeshParameters
     device: torch.device
-    cp_group: "dist.ProcessGroup | None" = None
-    cp_rank: int = 0
+    mesh: "object | None" = None  # DeviceMesh
+
+    # --- axis groups (the JAX context's "domains") -----------------------
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return (AXIS_DP_REPLICATE, AXIS_DP_SHARD)
+
+    @property
+    def cp_axes(self) -> tuple[str, ...]:
+        return (AXIS_CP_SHARD, AXIS_CP_REPLICATE)
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
-        return (AXIS_DP_REPLICATE, AXIS_DP_SHARD)
+        """Axes over which the global batch dim is split (dp, incl. fsdp)."""
+        return self.dp_axes
 
     @property
     def sequence_axes(self) -> tuple[str, ...]:
@@ -144,15 +195,100 @@ class MeshContext:
         return (AXIS_CP_SHARD,)
 
     @property
-    def cp_size(self) -> int:
-        return self.params.cp_shard
+    def fsdp_axes(self) -> tuple[str, ...]:
+        """Parameter-shard axes: the fused ``dp_s x cp_s`` dim."""
+        return (AXIS_DP_SHARD, AXIS_CP_SHARD)
+
+    @property
+    def grad_reduce_axes(self) -> tuple[str, ...]:
+        """Axes across which gradients of replicated params are summed."""
+        return (AXIS_DP_REPLICATE, AXIS_DP_SHARD, AXIS_CP_SHARD,
+                AXIS_CP_REPLICATE)
+
+    @functools.cached_property
+    def ep_shard_axes(self) -> tuple[str, ...]:
+        """Mesh axes forming the expert-shard dim (fastest-varying suffix)."""
+        non_pp = list(zip(MESH_AXIS_NAMES[1:], self.params.axis_sizes[1:]))
+        return _suffix_axes_covering(self.params.ep_shard, non_pp)
+
+    @functools.cached_property
+    def ep_replicate_axes(self) -> tuple[str, ...]:
+        """Non-pp axes not part of the expert shard."""
+        shard = set(self.ep_shard_axes)
+        return tuple(n for n, s in zip(MESH_AXIS_NAMES[1:],
+                                       self.params.axis_sizes[1:])
+                     if n not in shard)
+
+    # --- sizes, groups and coordinates ----------------------------------
 
     def axis_size(self, *axes: str) -> int:
-        n = 1
-        for a in axes:
-            n *= self.params.axis_sizes[MESH_AXIS_NAMES.index(a)]
-        return n
+        return math.prod(self.params.axis_sizes[MESH_AXIS_NAMES.index(a)]
+                         for a in axes)
+
+    @property
+    def world_size(self) -> int:
+        return self.params.world_size
 
     @property
     def pp_size(self) -> int:
         return self.params.pp
+
+    @property
+    def cp_size(self) -> int:
+        return self.params.cp_shard
+
+    def submesh(self, *axes: str):
+        """The ``DeviceMesh`` over ``axes`` (those of size 1 left out, one
+        kept if all are), flattened to one dim when there are several;
+        ``None`` for a mesh of one rank."""
+        if self.mesh is None:
+            return None
+        axes = tuple(a for a in axes if self.axis_size(a) > 1) or axes[:1]
+        cache = self.__dict__.setdefault("_submeshes", {})
+        if axes not in cache:
+            sub = self.mesh[axes]
+            cache[axes] = sub if len(axes) == 1 else sub._flatten(
+                "_".join(axes))
+        return cache[axes]
+
+    def group(self, *axes: str) -> "dist.ProcessGroup | None":
+        """The process group over ``axes`` (a group of one rank where
+        their sizes multiply to 1); ``None`` for a mesh of one rank."""
+        sub = self.submesh(*axes)
+        return None if sub is None else sub.get_group()
+
+    def coordinate(self, *axes: str) -> int:
+        """This rank's row-major index over ``axes``."""
+        if self.mesh is None:
+            return 0
+        coord = self.mesh.get_coordinate()
+        idx = 0
+        for a in axes:
+            i = MESH_AXIS_NAMES.index(a)
+            idx = idx * self.params.axis_sizes[i] + coord[i]
+        return idx
+
+    @property
+    def cp_group(self) -> "dist.ProcessGroup | None":
+        """The ring's group (``None`` for ``cp_shard = 1``: a ring of one
+        rank)."""
+        return self.group(AXIS_CP_SHARD) if self.cp_size > 1 else None
+
+    @property
+    def cp_rank(self) -> int:
+        """Rank ``i`` owns sequence positions ``[i·T/cp, (i+1)·T/cp)``."""
+        return self.coordinate(AXIS_CP_SHARD)
+
+    # --- process info ----------------------------------------------------
+
+    @property
+    def process_index(self) -> int:
+        return dist.get_rank() if self.mesh is not None else 0
+
+    @property
+    def process_count(self) -> int:
+        return self.world_size
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0

@@ -37,7 +37,7 @@
 // layout by cp.async) came out right on the card but slower than this one,
 // padded or not, and also with the next tile's scores issued before the
 // current softmax; wgmma pays off with TMA, warp specialisation and
-// ping-pong between warpgroups, later work (ROADMAP Queue D).
+// ping-pong between warpgroups, later work (ROADMAP "Measured gaps").
 #pragma once
 
 #include "attn_mma.cuh"

@@ -24,6 +24,16 @@
 // time. Only integer arithmetic touches the values, so denormals and signed
 // zeros are rounded by the rule like any other value. The output may be a
 // bf16 parameter written in place; it never overlaps the fp32 input.
+//
+// Shards. A tensor may be one rank's piece of a larger one (a parameter
+// that FSDP sharded). The bits must be those the element draws in the whole
+// tensor, so the hash takes the element's index there: local element i of
+// a piece of `cols`-element rows lies at index_offset + (i / cols) *
+// row_stride + i % cols of the whole tensor (a row-range piece, cut on dim
+// 0, is one run: cols == row_stride, and the index is index_offset + i; a
+// column piece, cut on a later dim, is one run per row). The division runs
+// only in the second case, once per four elements where cols % 4 == 0 (the
+// four then lie in one row), else once per element.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,10 +64,19 @@ __device__ __forceinline__ uint32_t round_one(float x, uint64_t i,
   return (b + (random_bits(i, k0, k1) & 0xffffu)) >> 16;
 }
 
-template <bool kVec>
+struct Index {  // local flat index -> index in the whole tensor
+  int64_t offset, cols, row_stride;
+  template <bool kStrided>
+  __device__ __forceinline__ uint64_t at(int64_t i) const {
+    if (!kStrided) return static_cast<uint64_t>(offset + i);
+    return static_cast<uint64_t>(offset + (i / cols) * row_stride + i % cols);
+  }
+};
+
+template <bool kVec, bool kStrided>
 __global__ void __launch_bounds__(256)
     sr_kernel(const float* __restrict__ x, uint16_t* __restrict__ out,
-              int64_t n, uint32_t k0, uint32_t k1) {
+              int64_t n, uint32_t k0, uint32_t k1, Index ix) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   int64_t done = 0;
@@ -67,7 +86,7 @@ __global__ void __launch_bounds__(256)
     uint2* o4 = reinterpret_cast<uint2*>(out);
     for (int64_t g = t; g < n4; g += stride) {
       const float4 v = x4[g];
-      const uint64_t i = static_cast<uint64_t>(g) * 4;
+      const uint64_t i = ix.at<kStrided>(g * 4);
       uint2 w;
       w.x = round_one(v.x, i, k0, k1) | (round_one(v.y, i + 1, k0, k1) << 16);
       w.y = round_one(v.z, i + 2, k0, k1) |
@@ -78,26 +97,36 @@ __global__ void __launch_bounds__(256)
   }
   for (int64_t i = done + t; i < n; i += stride) {
     out[i] = static_cast<uint16_t>(
-        round_one(x[i], static_cast<uint64_t>(i), k0, k1));
+        round_one(x[i], ix.at<kStrided>(i), k0, k1));
   }
 }
 
 }  // namespace
 
 // x: fp32 [n], out: bf16 [n] (as uint16), both contiguous; seed: the 64-bit
-// key. Launches on `stream`, allocates nothing, never synchronizes.
+// key; index_offset, cols, row_stride: where the elements lie in the whole
+// tensor (see "Shards"; 0, n, n for a whole tensor). Launches on `stream`,
+// allocates nothing, never synchronizes.
 extern "C" int d9d_stochastic_round(const void* x, void* out, long long n,
-                                    unsigned long long seed, void* stream) {
+                                    unsigned long long seed,
+                                    long long index_offset, long long cols,
+                                    long long row_stride, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
+  if (index_offset < 0 || cols < 1 || row_stride < cols || n % cols != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return (int)err;
+  const bool strided = cols != row_stride;
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
+                   reinterpret_cast<uintptr_t>(out) % 8 == 0 &&
+                   (!strided || cols % 4 == 0);
+  const Index ix{index_offset, cols, row_stride};
   const int threads = 256;
   const long long work = vec ? (n + 3) / 4 : n;
   long long blocks = (work + threads - 1) / threads;
@@ -108,10 +137,18 @@ extern "C" int d9d_stochastic_round(const void* x, void* out, long long n,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   uint16_t* o = static_cast<uint16_t*>(out);
-  if (vec) {
-    sr_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0, k1);
+  if (vec && strided) {
+    sr_kernel<true, true><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0,
+                                                               k1, ix);
+  } else if (vec) {
+    sr_kernel<true, false><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0,
+                                                                k1, ix);
+  } else if (strided) {
+    sr_kernel<false, true><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0,
+                                                                k1, ix);
   } else {
-    sr_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0, k1);
+    sr_kernel<false, false><<<(unsigned)blocks, threads, 0, s>>>(xf, o, n, k0,
+                                                                 k1, ix);
   }
   return (int)cudaGetLastError();
 }

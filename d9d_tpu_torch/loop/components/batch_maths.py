@@ -1,5 +1,7 @@
 """Global-batch ↔ microbatch arithmetic (counterpart of
-``d9d_tpu/loop/components/batch_maths.py``)."""
+``d9d_tpu/loop/components/batch_maths.py``). ``dp_size`` is the product of
+the mesh's batch axes (``dp_r x dp_s``): every microbatch is split evenly
+over them (``batch_staging.py``)."""
 
 import dataclasses
 

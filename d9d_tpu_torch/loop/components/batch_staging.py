@@ -3,15 +3,21 @@
 
 :func:`split_microbatches` cuts a prepared global batch into a list of
 microbatches; :func:`stage_microbatches` does that and moves every leaf to
-the device (from pinned memory, asynchronously, on a CUDA device). There
-is no data-parallel sharding to place. Under context parallelism every
-rank reads the same global batch, and each keeps its contiguous chunk of
-the sequence dim of every leaf whose dim 2 (after microbatch stacking)
-equals ``seq_len``: rank ``i`` of ``cp`` takes positions ``[i·seq_len/cp,
-(i+1)·seq_len/cp)``. Other leaves stay whole. Positions are made before
-the cut (``CausalLMTask.prepare_batch``), so each chunk carries its global
-rope positions; labels are shifted before it, so no target is lost at a
-chunk boundary.
+the device (from pinned memory, asynchronously, on a CUDA device). Every
+rank reads the same global batch and keeps its own part of each
+microbatch, the layout of the JAX package's ``batch_sharding`` (batch dim
+over ``dp_r x dp_s``, sequence dim over ``cp_s``):
+
+- data parallelism: rank ``c`` of ``dp`` (its row-major coordinate on
+  ``(dp_r, dp_s)``) keeps rows ``[c·m/dp, (c+1)·m/dp)`` of every leaf of
+  each microbatch of ``m`` rows;
+- context parallelism: rank ``i`` of ``cp`` then keeps positions
+  ``[i·seq_len/cp, (i+1)·seq_len/cp)`` of every leaf whose dim 2 (after
+  microbatch stacking) equals ``seq_len``. Other leaves keep their
+  sequence dim whole. Positions are made before the cut
+  (``CausalLMTask.prepare_batch``), so each chunk carries its global rope
+  positions; labels are shifted before it, so no target is lost at a chunk
+  boundary.
 """
 
 import numpy as np
@@ -28,11 +34,17 @@ def check_cp_seq_len(seq_len: int | None, cp_size: int) -> None:
 
 def split_microbatches(prepared: dict, *, num_microbatches: int,
                        microbatch_size: int, seq_len: int | None = None,
-                       cp_size: int = 1, cp_rank: int = 0) -> list[dict]:
-    """Host-side: ``{name: [n*m, ...]}`` → ``n`` dicts of ``[m, ...]``,
-    each sequence leaf cut to this cp rank's chunk."""
+                       cp_size: int = 1, cp_rank: int = 0, dp_size: int = 1,
+                       dp_rank: int = 0) -> list[dict]:
+    """Host-side: ``{name: [n*m, ...]}`` → ``n`` dicts of ``[m/dp, ...]``,
+    each this dp rank's rows and each sequence leaf cut to this cp rank's
+    chunk."""
     check_cp_seq_len(seq_len, cp_size)
     n, m = num_microbatches, microbatch_size
+    if m % dp_size != 0:
+        raise ValueError(
+            f"microbatch_size {m} not divisible by dp_size {dp_size}")
+    m_loc = m // dp_size
     stacked = {}
     for key, x in prepared.items():
         x = np.asarray(x)
@@ -40,6 +52,7 @@ def split_microbatches(prepared: dict, *, num_microbatches: int,
             raise ValueError(
                 f"batch leading dim {x.shape[0]} != global batch {n * m}")
         x = x.reshape(n, m, *x.shape[1:])
+        x = x[:, dp_rank * m_loc:(dp_rank + 1) * m_loc]
         if cp_size > 1 and x.ndim >= 3 and x.shape[2] == seq_len:
             t_loc = seq_len // cp_size
             x = x[:, :, cp_rank * t_loc:(cp_rank + 1) * t_loc]
@@ -50,13 +63,15 @@ def split_microbatches(prepared: dict, *, num_microbatches: int,
 def stage_microbatches(prepared: dict, *, num_microbatches: int,
                        microbatch_size: int, device: torch.device,
                        seq_len: int | None = None, cp_size: int = 1,
-                       cp_rank: int = 0) -> list[dict[str, torch.Tensor]]:
+                       cp_rank: int = 0, dp_size: int = 1,
+                       dp_rank: int = 0) -> list[dict[str, torch.Tensor]]:
     """:func:`split_microbatches`, each leaf as a tensor on ``device``."""
     out = []
     for mb in split_microbatches(prepared, num_microbatches=num_microbatches,
                                  microbatch_size=microbatch_size,
                                  seq_len=seq_len, cp_size=cp_size,
-                                 cp_rank=cp_rank):
+                                 cp_rank=cp_rank, dp_size=dp_size,
+                                 dp_rank=dp_rank):
         staged = {}
         for key, x in mb.items():
             t = torch.from_numpy(np.ascontiguousarray(x))

@@ -2,8 +2,10 @@
 ``d9d_tpu/loop/control/providers.py``).
 
 ``ModelProvider.build_module`` receives the mesh context and builds the
-module ON its device (the JAX provider builds an unbound flax module and a
-parallelism plan; a one-device port has no plan to build).
+module ON its device — the meta device when the trainer's model factory
+builds a sharded model (``loop/model_factory.py``), which then
+materializes it. ``ModelProvider.build_plan`` names the parallelism plan
+(``parallel/plan.py``).
 ``OptimizerProvider.build`` receives the module's parameters and the
 learning rate (a float or a ``step -> lr`` schedule).
 """
@@ -15,12 +17,22 @@ from torch import nn
 
 from d9d_tpu_torch.core.mesh import MeshContext
 from d9d_tpu_torch.optim.adamw import AdamW
+from d9d_tpu_torch.parallel.plan import ParallelPlan, replicate_plan
 
 
 class ModelProvider(abc.ABC):
     @abc.abstractmethod
     def build_module(self, ctx: MeshContext) -> nn.Module:
-        """The model, its parameters on ``ctx.device``."""
+        """The model, its parameters on ``ctx.device``. Random weights
+        come from a seed the module keeps as ``seed`` (the sharded init
+        draws from it)."""
+
+    def build_plan(self, ctx: MeshContext) -> ParallelPlan:
+        """The parallelism plan. Unlike the JAX provider's abstract method
+        this has a default, :func:`replicate_plan` (every parameter whole
+        on every rank, gradients all-reduced), so providers written before
+        the plans existed keep working."""
+        return replicate_plan(ctx)
 
 
 class DatasetProvider(abc.ABC):

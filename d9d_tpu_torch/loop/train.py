@@ -1,16 +1,22 @@
 """Trainer: wires providers into the step and runs the loop (counterpart of
-``d9d_tpu/loop/train.py``), on one device or with context parallelism over
-processes, without pipeline parallelism or PEFT.
+``d9d_tpu/loop/train.py``), on one device or over a mesh of processes
+(``dp_r x dp_s x cp_s``), without pipeline parallelism or PEFT.
 
-Context parallelism (``ctx.cp_size > 1``): every rank builds the same
-model (parameters replicated, no FSDP — ROADMAP A3) and takes rank 0's
-parameters by one broadcast at build, so no two ranks can start apart; the
-optimizer states stay equal because the gradients are all-reduced. Every
-rank reads the same global batch and stages its sequence chunk; the step
-all-reduces its sums over the cp group, so the history is the same on
-every rank. The model must attend across ranks (the ring sdpa backend,
-``SdpaRingConfig``); MoE models under cp raise (their expert metrics and
-expert parallelism over the group are ROADMAP A3).
+The model comes from the provider through the model factory
+(``loop/model_factory.py``) and the provider's plan
+(``ModelProvider.build_plan``). Under ``fsdp_plan`` / ``hsdp_plan`` each
+rank initializes and holds only its pieces of the sharded parameters.
+Under the replicate plan (the default) every rank builds the whole model
+and takes rank 0's parameters by one broadcast at build, so no two ranks
+can start apart. Either way the optimizer states stay equal across
+replicas because the gradients are summed over the mesh. Every rank reads
+the same global batch and stages its rows (its ``(dp_r, dp_s)``
+coordinate) and its sequence chunk (its ``cp_s`` coordinate); the step
+sums over the gradient-reduce axes, so the history is the same on every
+rank. Under ``cp_shard > 1`` the model must attend across ranks (the ring
+sdpa backend, ``SdpaRingConfig``); MoE models on a mesh of more than one
+rank raise (expert parallelism and MoE metrics over the group: ROADMAP
+A3.3).
 
 ``__init__`` builds batch maths → model (through the provider, on the
 context's device) → optimizer → step. ``train()`` is a host loop around the
@@ -48,8 +54,10 @@ from d9d_tpu_torch.loop.control.providers import (
     OptimizerProvider,
 )
 from d9d_tpu_torch.loop.control.task import TrainTask
+from d9d_tpu_torch.loop.model_factory import build_model
 from d9d_tpu_torch.loop.train_step import build_eval_step, build_train_step
 from d9d_tpu_torch.nn.moe import MoELayer
+from d9d_tpu_torch.parallel.plan import fsdp_modules
 from d9d_tpu_torch.tracker import NullTracker, Tracker
 
 logger = logging.getLogger("d9d_tpu_torch.trainer")
@@ -82,22 +90,14 @@ class Trainer:
             ctx, config.global_batch_size, config.microbatch_size)
         self.stepper = Stepper(total_steps=config.total_steps)
         check_cp_seq_len(config.seq_len, ctx.cp_size)
-        self._reduce_group = ctx.cp_group  # None on one device
+        # None on one device
+        self._reduce_group = ctx.group(*ctx.grad_reduce_axes)
 
-        self.module = model_provider.build_module(ctx)
-        if self._reduce_group is not None:
-            if any(isinstance(m, MoELayer) for m in self.module.modules()):
-                raise NotImplementedError(
-                    "MoE models under context parallelism are not ported "
-                    "(expert parallelism and MoE metrics over the group: "
-                    "ROADMAP A3)")
-            sdpa = getattr(self.module, "sdpa", None)
-            if sdpa is not None and getattr(sdpa, "group", None) is None:
-                # a local backend would attend within each rank's chunk only
-                raise ValueError(
-                    "under cp_shard > 1 the model must attend through the "
-                    "ring backend: build_sdpa_backend(SdpaRingConfig(), "
-                    "ctx=ctx)")
+        self.module = build_model(model_provider, ctx,
+                                  model_provider.build_plan(ctx),
+                                  validate=self._validate_module)
+        sharded = bool(fsdp_modules(self.module))
+        if self._reduce_group is not None and not sharded:
             with torch.no_grad():
                 broadcast(list(self.module.parameters()), self._reduce_group)
         self.optimizer = optimizer_provider.build(
@@ -111,6 +111,7 @@ class Trainer:
             num_microbatches=self.batch_maths.num_microbatches,
             max_grad_norm=config.max_grad_norm,
             reduce_group=self._reduce_group,
+            shard_group=ctx.group(*ctx.fsdp_axes) if sharded else None,
         )
         self.dataset_provider = dataset_provider
         self.gc = ManualGarbageCollector(config.gc_every_steps)
@@ -119,17 +120,37 @@ class Trainer:
         self._eval_fn = None
         self._tokens_per_step = config.global_batch_size * config.seq_len
 
+    def _validate_module(self, module) -> None:
+        if self.ctx.world_size == 1:
+            return
+        if any(isinstance(m, MoELayer) for m in module.modules()):
+            raise NotImplementedError(
+                "MoE models on a mesh of more than one rank are not ported "
+                "(expert parallelism and MoE metrics over the group: "
+                "ROADMAP A3.3)")
+        sdpa = getattr(module, "sdpa", None)
+        if (self.ctx.cp_size > 1 and sdpa is not None
+                and getattr(sdpa, "group", None) is None):
+            # a local backend would attend within each rank's chunk only
+            raise ValueError(
+                "under cp_shard > 1 the model must attend through the "
+                "ring backend: build_sdpa_backend(SdpaRingConfig(), "
+                "ctx=ctx)")
+
     # -- the step ------------------------------------------------------
 
     def _stage_batch(self, raw_batch: dict) -> list[dict]:
-        """prepare → microbatch split (→ this rank's sequence chunk) →
-        device."""
+        """prepare → microbatch split → this rank's rows and sequence
+        chunk → device."""
+        ctx = self.ctx
         return stage_microbatches(
             self.task.prepare_batch(raw_batch),
             num_microbatches=self.batch_maths.num_microbatches,
             microbatch_size=self.batch_maths.microbatch_size,
             device=self.device, seq_len=self.config.seq_len,
-            cp_size=self.ctx.cp_size, cp_rank=self.ctx.cp_rank,
+            cp_size=ctx.cp_size, cp_rank=ctx.cp_rank,
+            dp_size=self.batch_maths.dp_size,
+            dp_rank=ctx.coordinate(*ctx.batch_axes),
         )
 
     def run_step(self, raw_batch: dict) -> dict:

@@ -22,12 +22,21 @@ The contract is the JAX step's:
 - the metrics ``loss``, ``grad_norm``, ``loss_weight`` and
   ``task/<k>`` (task statistics summed over microbatches), as device
   scalars — nothing is read back here;
-- under context parallelism (``reduce_group``, the cp group) each rank
-  runs the microbatch loop on its sequence chunk, then ONE sum all-reduce
-  over the group covers the fp32 gradients, ``loss_sum``, ``weight_sum``
-  and the task statistics — the JAX step's psum over the gradient-reduce
-  axes — before sum-then-scale; the clip and the update follow unchanged,
-  identically on every rank.
+- over a mesh (``reduce_group``, the group of the gradient-reduce axes
+  ``dp_r x dp_s x cp_s``) each rank runs the microbatch loop on its rows
+  and sequence chunk, and everything is summed once a step, after the
+  loop, as the JAX step's psum: ONE sum all-reduce over the group covers
+  ``loss_sum``, ``weight_sum``, the task statistics and the fp32
+  gradients of the parameters every rank holds whole; the parameters a
+  plan sharded (``DTensor``, ``parallel/plan.py``) are reduced by FSDP at
+  the last microbatch's backward (gradient sync is off for the others),
+  summed over the shard and replicate dims into this rank's piece. Then
+  sum-then-scale; the global norm adds the squares of the whole
+  gradients (equal on every rank) to those of the pieces, summed over
+  ``shard_group`` (the fsdp axes; replicas along ``dp_r`` hold equal
+  pieces and are not summed again). Narrow sharded parameters take their
+  fp32 gradients from ``ReducedGradients``. The clip and the update follow
+  unchanged, on each rank's pieces.
 
 The anomaly guard, ZeRO sharding, the split update and the numerics plane
 are not ported: asking for them raises ``NotImplementedError``.
@@ -40,11 +49,26 @@ from torch import nn
 
 from d9d_tpu_torch.core.collectives import all_reduce_sum
 from d9d_tpu_torch.loop.control.task import TrainTask
+from d9d_tpu_torch.parallel.plan import ReducedGradients, fsdp_modules
+from d9d_tpu_torch.parallel.shards import is_sharded, local_tensor
 
 
-def global_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``)."""
-    return torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+def _sum_squares(grads: list[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([g.float().pow(2).sum() for g in grads]).sum()
+
+
+def global_grad_norm(grads: list[torch.Tensor], pieces=(),
+                     shard_group=None) -> torch.Tensor:
+    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``): ``grads``
+    whole on every rank, ``pieces`` this rank's pieces of sharded
+    gradients, their squares summed over ``shard_group``."""
+    total = _sum_squares(grads) if grads else None
+    if pieces:
+        sq = _sum_squares(list(pieces))
+        if shard_group is not None:
+            all_reduce_sum([sq], shard_group)
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def build_train_step(
@@ -60,12 +84,14 @@ def build_train_step(
     split_update: bool = False,
     numerics: bool = False,
     reduce_group=None,
+    shard_group=None,
 ) -> Callable[[list[dict]], dict[str, torch.Tensor]]:
     """Build the step over ``module``'s trainable parameters:
     ``step(microbatches) -> metrics``, taking the ``num_microbatches``
     staged microbatches of one optimizer step. ``reduce_group``: the
     process group the step's sums are all-reduced over (``None``: one
-    process)."""
+    process); ``shard_group``: the group over which a planned module's
+    parameters are sharded (``None``: none are, or one rank)."""
     unported = {"anomaly_policy": anomaly_policy is not None,
                 "zero": zero is not None, "split_update": split_update,
                 "numerics": numerics}
@@ -83,6 +109,10 @@ def build_train_step(
             f"parameters held in {sorted(wide)} with grad_dtype {grad_dtype}: "
             f"only parameters narrower than grad_dtype are accumulated apart")
     fp32_grads = getattr(optimizer, "accepts_fp32_grads", False)
+    sharded = [is_sharded(p) for p in params]
+    planned = bool(fsdp_modules(module))
+    reduced = (ReducedGradients(module)
+               if any(s and n for s, n in zip(sharded, narrow)) else None)
 
     def step(microbatches: list[dict]) -> dict[str, torch.Tensor]:
         if len(microbatches) != num_microbatches:
@@ -93,13 +123,15 @@ def build_train_step(
         accs: list[torch.Tensor | None] = [None] * len(params)
         loss_sum = weight_sum = None
         metrics_sum: dict[str, torch.Tensor] = {}
-        for mb in microbatches:
+        for j, mb in enumerate(microbatches):
+            if planned:  # FSDP reduces once, at the last backward
+                module.set_requires_gradient_sync(j == len(microbatches) - 1)
             # each backward adds this microbatch's gradients into .grad
             loss, weight, metrics = task.loss_fn(module, mb)
             loss.backward()
             with torch.no_grad():
                 for i, p in enumerate(params):
-                    if narrow[i] and p.grad is not None:
+                    if narrow[i] and not sharded[i] and p.grad is not None:
                         if accs[i] is None:
                             accs[i] = p.grad.to(grad_dtype)
                         else:
@@ -113,34 +145,45 @@ def build_train_step(
                 metrics_sum[k] = v if k not in metrics_sum else metrics_sum[k] + v
 
         with torch.no_grad():
+            fp32 = reduced.take() if reduced is not None else {}
             grads = []
             for i, p in enumerate(params):
-                g = accs[i] if narrow[i] else p.grad
+                if sharded[i]:  # this rank's piece, reduced by FSDP
+                    g = (fp32.get(p) if narrow[i] else
+                         None if p.grad is None else local_tensor(p.grad))
+                else:
+                    g = accs[i] if narrow[i] else p.grad
                 if g is None:  # unused by the loss: a zero gradient
-                    g = torch.zeros_like(p, dtype=grad_dtype or p.dtype)
+                    g = torch.zeros_like(local_tensor(p),
+                                         dtype=grad_dtype or p.dtype)
                 grads.append(g)
-            del accs
+            del accs, fp32
+            whole = [g for g, s in zip(grads, sharded) if not s]
             if reduce_group is not None:
                 # copies: a task may hand back one tensor as both its weight
                 # and a statistic, and each must be summed once
                 keys = sorted(metrics_sum)
                 sums = [x.clone() for x in [loss_sum, weight_sum]
                         + [metrics_sum[k] for k in keys]]
-                all_reduce_sum(grads + sums, reduce_group)
+                all_reduce_sum(whole + sums, reduce_group)
                 loss_sum, weight_sum = sums[:2]
                 metrics_sum = dict(zip(keys, sums[2:]))
             # sum-then-scale by the global weight
             inv_w = 1.0 / torch.clamp(weight_sum, min=1e-8)
             torch._foreach_mul_(grads, inv_w)
             loss = loss_sum * inv_w
-            grad_norm = global_grad_norm(grads)
+            grad_norm = global_grad_norm(
+                whole, [g for g, s in zip(grads, sharded) if s], shard_group)
             if max_grad_norm is not None:
                 clip = torch.clamp(
                     max_grad_norm / torch.clamp(grad_norm, min=1e-12), max=1.0)
                 torch._foreach_mul_(grads, clip)
             if not fp32_grads:
                 for i, p in enumerate(params):
-                    p.grad = grads[i].to(p.dtype)
+                    if not sharded[i]:
+                        p.grad = grads[i].to(p.dtype)
+                    elif p.grad is not None:
+                        local_tensor(p.grad).copy_(grads[i])
         if fp32_grads:
             optimizer.step(grads)
         else:
@@ -156,7 +199,11 @@ def build_train_step(
 def build_eval_step(*, module: nn.Module, task: TrainTask,
                     reduce_group=None):
     """Forward-only: ``Σ loss_sum / max(Σ weight, 1e-8)`` over the
-    microbatches (and over ``reduce_group``'s ranks), as a device scalar."""
+    microbatches (and over ``reduce_group``'s ranks: the gradient-reduce
+    axes), as a device scalar. A planned module is resharded after it:
+    with no backward to reshard them, FSDP's root would keep its
+    parameters gathered (and registered in place of its pieces)."""
+    planned = bool(fsdp_modules(module))
 
     @torch.no_grad()
     def step(microbatches: list[dict]) -> torch.Tensor:
@@ -165,6 +212,8 @@ def build_eval_step(*, module: nn.Module, task: TrainTask,
             loss, weight, _ = task.loss_fn(module, mb)
             loss_sum = loss_sum + loss.float()
             weight_sum = weight_sum + weight.float()
+        if planned:
+            module.reshard()
         if reduce_group is not None:
             loss_sum, weight_sum = loss_sum.clone(), weight_sum.clone()
             all_reduce_sum([loss_sum, weight_sum], reduce_group)

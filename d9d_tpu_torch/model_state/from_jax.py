@@ -22,7 +22,13 @@ parameters of the port's counterpart module (a whole
   own dtype.
 
 It raises on any key of ``flat`` that is left over and on any parameter of
-the model that got no value. This module imports numpy and torch only.
+the model that got no value. Which parameters are transposed flax kernels
+is read from the one table of parameter layouts
+(``nn/logical_axes.py`` ``param_layouts``). A model that a plan sharded
+(``parallel/plan.py``) takes only this rank's piece of each sharded
+parameter; a model on the meta device (before the sharded init
+materializes it) raises, since it has nowhere to keep the values. This
+module imports numpy and torch only.
 
 Decode caches are state, not weights: the contiguous slot cache and the
 paged serving loop's page pools, int8 scale pools and page table
@@ -37,10 +43,12 @@ import torch
 
 from d9d_tpu_torch.nn.embedding import TokenEmbedding
 from d9d_tpu_torch.nn.heads import LanguageModellingHead
+from d9d_tpu_torch.nn.logical_axes import param_layouts
 from d9d_tpu_torch.nn.vocab_ranges import (
     concat_vocab_ranges,
     vocab_range_names,
 )
+from d9d_tpu_torch.parallel.shards import write_whole_
 
 
 def _to_tensor(value, like: torch.Tensor) -> torch.Tensor:
@@ -119,9 +127,15 @@ def load_jax_params(model, flat: dict) -> None:
     """Fill ``model``'s parameters in place from a flattened flax tree."""
     flat = _strip_trainer_prefix(flat)
     params = dict(model.named_parameters())
+    meta = sorted(n for n, p in params.items() if p.is_meta)
+    if meta:
+        raise ValueError(
+            f"load_jax_params: parameters on the meta device ({meta[:3]}"
+            f"...): load after the model is materialized")
+    layouts = param_layouts(model)
     for name, keys in jax_param_map(model, flat).items():
         target = params[name]
-        if keys[0].endswith("/kernel") or keys[0] == "kernel":
+        if layouts[name].transposed:
             value = _to_tensor(flat[keys[0]], target).T
         else:
             value = concat_vocab_ranges(
@@ -131,5 +145,4 @@ def load_jax_params(model, flat: dict) -> None:
                 f"shape mismatch for {name}: source {tuple(value.shape)}, "
                 f"parameter {tuple(target.shape)}"
             )
-        with torch.no_grad():
-            target.copy_(value)
+        write_whole_(target, value)

@@ -38,7 +38,7 @@ from d9d_tpu_torch.ops import compute_rope_frequencies, make_rope_cos_sin
 
 
 def _make_generator(seed: int | None, device: torch.device):
-    if seed is None:
+    if seed is None or device.type == "meta":
         return None
     return torch.Generator(device=device).manual_seed(seed)
 
@@ -127,6 +127,15 @@ class Qwen3DenseBackbone(nn.Module):
         self.register_buffer("inv_freq", inv_freq, persistent=False)
         self.rope_attention_scale = att_scale
 
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Recompute the rope buffer (the sharded init materializes the
+        model from the meta device, buffers included)."""
+        cfg = self.config
+        inv_freq, _ = compute_rope_frequencies(
+            cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+            device=self.inv_freq.device)
+        self.inv_freq.copy_(inv_freq)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -155,10 +164,11 @@ class Qwen3CausalLMBase(nn.Module):
     param_dtype=..., device=..., generator=...)``; the head's weights are
     drawn after the backbone's, from the same generator. ``device=None``
     means the card (raises without one). ``seed`` seeds the device generator
-    the random weights are drawn from. ``sdpa=None`` builds the flash
-    backend. ``param_dtype`` is the dtype parameters are held in (``None``:
-    the compute ``dtype``; training passes ``torch.float32``, the JAX
-    package's default)."""
+    the random weights are drawn from; on the meta device nothing is drawn
+    and the sharded init (``loop/model_factory.py``) draws from ``seed``.
+    ``sdpa=None`` builds the flash backend. ``param_dtype`` is the dtype
+    parameters are held in (``None``: the compute ``dtype``; training
+    passes ``torch.float32``, the JAX package's default)."""
 
     def __init__(
         self,
@@ -176,6 +186,7 @@ class Qwen3CausalLMBase(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         gen = _make_generator(seed, dev)
+        self.seed = seed
         self.config = config
         self.decode_max_length = decode_max_length
         self.dtype = dtype

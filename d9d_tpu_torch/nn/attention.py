@@ -36,6 +36,7 @@ from d9d_tpu_torch.nn.decode_flags import (
     paged_pool_shape,
 )
 from d9d_tpu_torch.nn.linear import Projection
+from d9d_tpu_torch.nn.logical_axes import EMBED, HEADS, KV_HEADS
 from d9d_tpu_torch.nn.norm import RMSNorm
 from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
 from d9d_tpu_torch.ops import RopeStyle, apply_rope
@@ -474,9 +475,11 @@ class GroupedQueryAttention(nn.Module):
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
         h, hkv, d = num_heads, num_kv_heads, head_dim
-        self.q_proj = Projection(hidden_size, h * d, **kw)
-        self.k_proj = Projection(hidden_size, hkv * d, **kw)
-        self.v_proj = Projection(hidden_size, hkv * d, **kw)
+        self.q_proj = Projection(hidden_size, h * d, axes=(EMBED, HEADS), **kw)
+        self.k_proj = Projection(hidden_size, hkv * d, axes=(EMBED, KV_HEADS),
+                                 **kw)
+        self.v_proj = Projection(hidden_size, hkv * d, axes=(EMBED, KV_HEADS),
+                                 **kw)
         if qk_norm:
             # in param_dtype, as the reference's q_norm/k_norm; the layer
             # norms around the block stay fp32 (nn/decoder.py)
@@ -489,8 +492,17 @@ class GroupedQueryAttention(nn.Module):
             self.sinks = nn.Parameter(
                 torch.zeros(h, dtype=torch.float32, device=dev))
         if use_output_gate:
-            self.gate_proj = Projection(hidden_size, h * d, **kw)
-        self.o_proj = Projection(h * d, hidden_size, **kw)
+            self.gate_proj = Projection(hidden_size, h * d,
+                                        axes=(EMBED, HEADS), **kw)
+        self.o_proj = Projection(h * d, hidden_size, axes=(HEADS, EMBED), **kw)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        if self.sinks is not None:
+            with torch.no_grad():
+                self.sinks.zero_()
+
+    def logical_axes(self) -> dict:
+        return {"sinks": (HEADS,)}
 
     def _rope(self, x, cos, sin):
         rot, d = self.rotary_dim, self.head_dim

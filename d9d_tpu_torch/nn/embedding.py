@@ -6,7 +6,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
+from d9d_tpu_torch.nn.logical_axes import VOCAB, VOCAB_FEATURES
 from d9d_tpu_torch.nn.vocab_ranges import VocabRanges, vocab_size
+from d9d_tpu_torch.parallel.shards import write_whole_
 
 
 class TokenEmbedding(nn.Module):
@@ -32,13 +34,19 @@ class TokenEmbedding(nn.Module):
         self.vocab_ranges = tuple(vocab_ranges)
         self.hidden_size = hidden_size
         self.dtype = dtype
-        dev = resolve_device(device)
-        weight = torch.empty(
+        self.weight = nn.Parameter(torch.empty(
             (self.vocab_size, hidden_size), dtype=param_dtype or dtype,
-            device=dev,
-        )
-        weight.normal_(0.0, 1.0, generator=generator)
-        self.weight = nn.Parameter(weight)
+            device=resolve_device(device),
+        ))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        w = self.weight
+        draw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+        write_whole_(w, draw.normal_(0.0, 1.0, generator=generator))
+
+    def logical_axes(self) -> dict:
+        return {"weight": (VOCAB, VOCAB_FEATURES)}
 
     @property
     def vocab_size(self) -> int:

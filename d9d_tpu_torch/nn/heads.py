@@ -6,9 +6,11 @@ import torch
 from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
-from d9d_tpu_torch.nn.init import lecun_normal_
+from d9d_tpu_torch.nn.init import lecun_normal_draw_
+from d9d_tpu_torch.nn.logical_axes import VOCAB, VOCAB_FEATURES
 from d9d_tpu_torch.nn.vocab_ranges import VocabRanges, vocab_size
 from d9d_tpu_torch.ops.linear_ce import linear_cross_entropy
+from d9d_tpu_torch.parallel.shards import write_whole_
 
 # rows of the table widened to fp32 at a time when it is stored narrower
 _LOGITS_VOCAB_CHUNK = 16_384
@@ -39,15 +41,23 @@ class LanguageModellingHead(nn.Module):
         self.hidden_size = hidden_size
         self.ce_chunk_size = ce_chunk_size
         self.dtype = dtype
-        weight = torch.empty(
+        self.weight = nn.Parameter(torch.empty(
             (vocab_size(self.vocab_ranges), hidden_size),
             dtype=param_dtype or dtype, device=resolve_device(device),
-        )
+        ))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        w = self.weight
+        draw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
         lo = 0
         for _name, size in self.vocab_ranges:
-            lecun_normal_(weight[lo:lo + size], size, generator)
+            lecun_normal_draw_(draw[lo:lo + size], size, generator)
             lo += size
-        self.weight = nn.Parameter(weight)
+        write_whole_(w, draw)
+
+    def logical_axes(self) -> dict:
+        return {"weight": (VOCAB, VOCAB_FEATURES)}
 
     def forward(self, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """``hidden [B, T, D]``, ``labels [B, T]`` → per-token loss ``[B, T]``

@@ -6,6 +6,8 @@ transposes the flax ``[in, out]`` kernels), flax's truncated lecun-normal
 init (fan_in = ``in_features``, the first axis of the flax kernel) drawn on
 the device from an explicit generator, the parameter held in
 ``param_dtype`` and cast to the compute dtype at use when the two differ.
+``axes`` are the flax kernel's logical axes ``(in, out)``
+(``nn/logical_axes.py``); the weight's are those reversed.
 """
 
 import torch
@@ -14,6 +16,7 @@ from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.nn.init import lecun_normal_
+from d9d_tpu_torch.nn.logical_axes import Axes
 
 
 class Projection(nn.Module):
@@ -22,6 +25,7 @@ class Projection(nn.Module):
         in_features: int,
         out_features: int,
         *,
+        axes: Axes = (None, None),
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
@@ -31,12 +35,15 @@ class Projection(nn.Module):
         self.in_features = in_features
         self.out_features = out_features
         self.dtype = dtype
-        weight = torch.empty(
+        self.flax_axes = tuple(axes)
+        self.weight = nn.Parameter(torch.empty(
             (out_features, in_features), dtype=param_dtype or dtype,
             device=resolve_device(device),
-        )
-        lecun_normal_(weight, in_features, generator)
-        self.weight = nn.Parameter(weight)
+        ))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        lecun_normal_(self.weight, self.in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # casts only where the dtypes differ: a no-op `.to` still costs a

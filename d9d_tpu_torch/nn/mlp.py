@@ -4,6 +4,7 @@ import torch
 from torch import nn
 
 from d9d_tpu_torch.nn.linear import Projection
+from d9d_tpu_torch.nn.logical_axes import EMBED, MLP
 from d9d_tpu_torch.ops import silu_mul
 
 
@@ -24,9 +25,12 @@ class SwiGLU(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   generator=generator)
-        self.gate_proj = Projection(hidden_size, intermediate_size, **kw)
-        self.up_proj = Projection(hidden_size, intermediate_size, **kw)
-        self.down_proj = Projection(intermediate_size, hidden_size, **kw)
+        self.gate_proj = Projection(hidden_size, intermediate_size,
+                                    axes=(EMBED, MLP), **kw)
+        self.up_proj = Projection(hidden_size, intermediate_size,
+                                  axes=(EMBED, MLP), **kw)
+        self.down_proj = Projection(intermediate_size, hidden_size,
+                                    axes=(MLP, EMBED), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(silu_mul(self.gate_proj(x), self.up_proj(x)))

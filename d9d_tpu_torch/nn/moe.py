@@ -23,6 +23,12 @@ from torch import nn
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.nn.init import variance_scaling_uniform_
 from d9d_tpu_torch.nn.linear import Projection
+from d9d_tpu_torch.nn.logical_axes import (
+    EMBED,
+    EXPERT,
+    EXPERT_EMBED,
+    EXPERT_MLP,
+)
 from d9d_tpu_torch.nn.mlp import SwiGLU
 from d9d_tpu_torch.ops.moe import grouped_swiglu_apply, sort_tokens_by_expert
 from d9d_tpu_torch.ops.moe_ffn import MOE_FFN_VARIANTS, fused_moe_ffn_apply
@@ -74,9 +80,9 @@ class TopKRouter(nn.Module):
         self.top_k = top_k
         self.renormalize_probabilities = renormalize_probabilities
         self.n_group, self.topk_group = n_group, topk_group
-        self.gate = Projection(dim, num_experts, dtype=dtype,
-                               param_dtype=param_dtype, device=device,
-                               generator=generator)
+        self.gate = Projection(dim, num_experts, axes=(EMBED, None),
+                               dtype=dtype, param_dtype=param_dtype,
+                               device=device, generator=generator)
         self.register_buffer("expert_bias", torch.zeros(
             num_experts, dtype=torch.float32, device=resolve_device(device))
             if enable_expert_bias else None)
@@ -135,6 +141,11 @@ class GroupedSwiGLU(nn.Module):
         self.gate_proj = weight(hidden_dim, intermediate_dim)
         self.up_proj = weight(hidden_dim, intermediate_dim)
         self.down_proj = weight(intermediate_dim, hidden_dim)
+
+    def logical_axes(self) -> dict:
+        return {"gate_proj": (EXPERT, EXPERT_EMBED, EXPERT_MLP),
+                "up_proj": (EXPERT, EXPERT_EMBED, EXPERT_MLP),
+                "down_proj": (EXPERT, EXPERT_MLP, EXPERT_EMBED)}
 
     def forward(self, permuted_x, permuted_probs, group_sizes) -> torch.Tensor:
         """Expert-sorted rows ``[M, D]`` + probs ``[M]`` → prob-weighted

@@ -28,10 +28,16 @@ class RMSNorm(nn.Module):
         self.hidden_size = hidden_size
         self.eps = eps
         self.zero_centered = zero_centered
-        init = torch.zeros if zero_centered else torch.ones
-        self.weight = nn.Parameter(
-            init(hidden_size, dtype=param_dtype, device=resolve_device(device))
-        )
+        self.weight = nn.Parameter(torch.empty(
+            hidden_size, dtype=param_dtype, device=resolve_device(device)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.weight.fill_(0.0 if self.zero_centered else 1.0)
+
+    def logical_axes(self) -> dict:
+        return {"weight": (None,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(

@@ -33,8 +33,9 @@ class SdpaRingConfig:
     """Ring attention over the context-parallel mesh axis
     (``ops/attention/ring.py``). Requires the model's sequence dim cut over
     ``seq_axis`` (the batch stager does it, over ``cp_s`` only: any other
-    ``seq_axis`` raises) and the factory's ``ctx``. Batch and head axes
-    larger than 1 raise (ROADMAP A3)."""
+    ``seq_axis`` raises) and the factory's ``ctx``. Under data
+    parallelism each rank's rows ring over its own ``cp_s`` group; head
+    axes larger than 1 raise (ROADMAP A3.2)."""
 
     type: str = "ring"
     seq_axis: str = "cp_s"

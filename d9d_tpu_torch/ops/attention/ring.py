@@ -266,18 +266,20 @@ def make_ring_sdpa(
     """An SDPA backend running ring attention over ``ctx``'s cp group.
 
     The JAX backend shard_maps global arrays; in the port every rank's model
-    already holds its own sequence chunk (the batch stager cut it), so the
-    backend takes local ``[B, T_loc, H, D]`` tensors. The stager cuts the
-    sequence over ``cp_s`` only, so any other ``seq_axis`` raises. Batch
-    and head axes of size > 1 (data and tensor parallelism composed with
-    the ring) are not ported (ROADMAP A3) and raise.
+    already holds its own rows and sequence chunk (the batch stager cut
+    them), so the backend takes local ``[B_loc, T_loc, H, D]`` tensors and
+    the ring runs over this rank's ``cp_s`` group: under data parallelism
+    each ``(dp_r, dp_s)`` coordinate has its own ring, and ``batch_axes``
+    only name the axes the rows were cut over. The stager cuts the
+    sequence over ``cp_s`` only, so any other ``seq_axis`` raises. Head
+    axes of size > 1 (tensor parallelism composed with the ring) are not
+    ported (ROADMAP A3.2) and raise.
     """
-    sharded = {a: ctx.axis_size(a) for a in (*batch_axes, *head_axes)
-               if ctx.axis_size(a) > 1}
+    sharded = {a: ctx.axis_size(a) for a in head_axes if ctx.axis_size(a) > 1}
     if sharded:
         raise NotImplementedError(
-            f"ring attention over batch/head axes {sharded} is not ported "
-            f"(ROADMAP A3)")
+            f"ring attention over head axes {sharded} is not ported "
+            f"(ROADMAP A3.2)")
     if seq_axis != AXIS_CP_SHARD:
         raise NotImplementedError(
             f"ring attention over {seq_axis!r}: the batch is sequence-"

@@ -113,6 +113,7 @@ _ELEMENTWISE = {
     "d9d_stochastic_round": [
         _P, _P,                      # x (fp32), out (bf16)
         _L, ctypes.c_ulonglong,      # numel, 64-bit seed
+        _L, _L, _L,                  # index offset, cols, row stride
         _P,                          # stream
     ],
 }

@@ -10,7 +10,15 @@ of ``d9d_tpu_torch/csrc/stochastic.cu``.
 The random bits are a counter-based function of ``(seed, element index)``
 (:func:`random_bits`), never of the launch configuration, so the plain
 version and the kernel compute the same bits and are held to each other bit
-for bit. They are not the TPU's bits: a ``jax.random`` key stream and the
+for bit. The index is the element's flat index in the WHOLE tensor: a
+tensor that is one rank's piece of a sharded one (``parallel/shards.py``)
+passes where it lies there (:func:`shard_index`), so a sharded optimizer
+step rounds every element with the bits the unsharded step gives it. A
+piece cut on dim 0 is one run of the whole tensor's flat index
+(``index_offset``); a piece cut on a later dim is one run per row, of
+``cols`` elements each, the rows ``row_stride`` apart.
+
+The bits are not the TPU's: a ``jax.random`` key stream and the
 TPU's on-chip PRNG cannot be reproduced here, so against the JAX package the
 parity is the rule's (``_sr_bits`` on the same bits) and the distribution's.
 
@@ -23,6 +31,8 @@ JAX rule does.
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.
 """
+
+import math
 
 import torch
 
@@ -60,13 +70,44 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def random_bits(seed: int, n: int, device="cpu") -> torch.Tensor:
-    """32 random bits per element index ``i < n`` → int64 ``[n]`` in
-    ``[0, 2^32)``: two rounds of fmix32 over the index, keyed by the two
-    32-bit halves of the 64-bit ``seed`` (the kernel's ``random_bits``)."""
+def shard_index(shape, bounds) -> tuple[int, int, int]:
+    """``(index_offset, cols, row_stride)`` of a piece of a tensor of the
+    whole ``shape``, cut to ``bounds`` (``[(dim, start, length)]`` as
+    ``parallel/shards.py`` ``shard_bounds`` gives them, at most one dim):
+    viewed as ``[prod(shape[:dim]), ...]`` rows, the piece holds ``cols``
+    elements of each row from ``index_offset`` on, rows ``row_stride``
+    apart. ``(0, n, n)`` for a whole tensor of ``n`` elements."""
+    if not bounds:
+        n = math.prod(shape)
+        return 0, max(n, 1), max(n, 1)
+    if len(bounds) > 1:
+        raise ValueError(f"a piece cut on more than one dim: {bounds}")
+    (dim, start, length), = bounds
+    inner = math.prod(shape[dim + 1:])
+    cols = max(length * inner, 1)
+    row_stride = cols if dim == 0 else max(shape[dim] * inner, cols)
+    return start * inner, cols, row_stride
+
+
+def _global_index(n, index_offset, cols, row_stride, device):
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if cols == row_stride:
+        return i + index_offset
+    return index_offset + (i // cols) * row_stride + i % cols
+
+
+def random_bits(seed: int, n: int, device="cpu", *, index_offset: int = 0,
+                cols: int | None = None,
+                row_stride: int | None = None) -> torch.Tensor:
+    """32 random bits per element ``i < n`` → int64 ``[n]`` in ``[0,
+    2^32)``: two rounds of fmix32 over the element's index in the whole
+    tensor (``index_offset + (i // cols) * row_stride + i % cols``;
+    ``index_offset + i`` without ``cols``), keyed by the two 32-bit halves
+    of the 64-bit ``seed`` (the kernel's ``random_bits``)."""
     seed &= _U64
     k0, k1 = seed & _U32, seed >> 32
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    cols = cols or max(n, 1)
+    idx = _global_index(n, index_offset, cols, row_stride or cols, device)
     h = _fmix32((idx & _U32) ^ k0)
     return _fmix32(h ^ (idx >> 32) ^ k1)
 
@@ -108,21 +149,32 @@ def stochastic_round_to_bf16_with_bits(
     return _uint16_to_bf16(out)
 
 
-def stochastic_round_to_bf16_plain(x: torch.Tensor, seed: int) -> torch.Tensor:
+def stochastic_round_to_bf16_plain(x: torch.Tensor, seed: int, *,
+                                   index_offset: int = 0,
+                                   cols: int | None = None,
+                                   row_stride: int | None = None
+                                   ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: the bits of
-    :func:`random_bits` ``(seed, flat index)`` through the rule."""
-    rand = random_bits(seed, x.numel(), x.device).reshape(x.shape)
+    :func:`random_bits` ``(seed, index in the whole tensor)`` through the
+    rule."""
+    rand = random_bits(seed, x.numel(), x.device, index_offset=index_offset,
+                       cols=cols, row_stride=row_stride).reshape(x.shape)
     return stochastic_round_to_bf16_with_bits(x, rand)
 
 
 def stochastic_round_to_bf16(
-    x: torch.Tensor, seed: int, *, out: torch.Tensor | None = None
+    x: torch.Tensor, seed: int, *, out: torch.Tensor | None = None,
+    index_offset: int = 0, cols: int | None = None,
+    row_stride: int | None = None,
 ) -> torch.Tensor:
     """Stochastically round ``x`` (any float dtype) to bf16: E[result] is
     ``x`` for finite values. ``seed`` is a 64-bit int; the same seed gives
     the same bits, so callers fold their step and role in
     (:func:`fold_seed`). ``out``: a contiguous bf16 tensor of ``x``'s shape
-    written in place (a parameter, say), returned.
+    written in place (a parameter, say), returned. ``index_offset``,
+    ``cols``, ``row_stride``: where ``x``'s elements lie in the whole
+    tensor when ``x`` is a piece of it (:func:`shard_index`; by default
+    ``x`` is whole).
 
     A CPU tensor takes :func:`stochastic_round_to_bf16_plain`; a CUDA
     tensor launches kernel B10. Counters: ``stochastic_round_to_bf16
@@ -137,9 +189,18 @@ def stochastic_round_to_bf16(
             f"{tuple(out.shape)} on {out.device}")
     if not x.is_floating_point():
         raise TypeError(f"stochastic_round_to_bf16: {x.dtype} is not a float")
+    n = x.numel()
+    cols = cols or max(n, 1)
+    row_stride = row_stride or cols
+    if index_offset < 0 or row_stride < cols or n % cols != 0:
+        raise ValueError(
+            f"stochastic_round_to_bf16: index_offset {index_offset}, cols "
+            f"{cols}, row_stride {row_stride} do not place {n} elements")
     if x.device.type == "cpu":
         stochastic_round_to_bf16.plain_calls += 1
-        y = stochastic_round_to_bf16_plain(x, seed)
+        y = stochastic_round_to_bf16_plain(
+            x, seed, index_offset=index_offset, cols=cols,
+            row_stride=row_stride)
         return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise RuntimeError(
@@ -155,7 +216,8 @@ def stochastic_round_to_bf16(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.d9d_stochastic_round(xf.data_ptr(), out.data_ptr(),
-                                       xf.numel(), seed & _U64, stream)
+                                       xf.numel(), seed & _U64, index_offset,
+                                       cols, row_stride, stream)
     kernel_lib.check_launch(err, "stochastic_round_to_bf16")
     stochastic_round_to_bf16.launches += 1
     return out
@@ -168,6 +230,7 @@ stochastic_round_to_bf16.plain_calls = 0
 __all__ = [
     "fold_seed",
     "random_bits",
+    "shard_index",
     "stochastic_round_to_bf16",
     "stochastic_round_to_bf16_plain",
     "stochastic_round_to_bf16_with_bits",

@@ -14,13 +14,17 @@ schedule at the state's count and increments afterwards), so update ``k``
 (0-based) uses ``lr(k)``. ``torch.optim.AdamW`` differs: it decays by
 ``lr * wd`` before the Adam step and a ``LambdaLR`` is stepped after the
 optimizer. Parameters are updated in place; moments live beside them in the
-parameters' dtype.
+parameters' dtype. A parameter that a plan sharded (a ``DTensor``) is
+stepped on this rank's piece, and its moments are pieces of the same
+shape.
 """
 
 from collections.abc import Callable, Iterable
 
 import numpy as np
 import torch
+
+from d9d_tpu_torch.parallel.shards import local_tensor
 
 
 class AdamW:
@@ -38,8 +42,9 @@ class AdamW:
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.count = 0  # updates applied so far (optax's state.count)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(local_tensor(p)) for p in self.params]
+            self.nu = [torch.zeros_like(local_tensor(p)) for p in self.params]
 
     def lr_at(self, count: int) -> float:
         """The learning rate of update ``count`` (0-based)."""
@@ -56,7 +61,9 @@ class AdamW:
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(k + 1))
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(k + 1))
         for p, m, v in zip(self.params, self.mu, self.nu):
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = p.grad
+            p = local_tensor(p)
+            g = local_tensor(g) if g is not None else torch.zeros_like(p)
             g = g.to(p.dtype)
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)

@@ -21,6 +21,12 @@ its key and splits it three ways; it reaches the kernel by value, so the
 step reads nothing back. ``state_dict`` holds ``count``, the moments and
 ``seed``, so a resumed run repeats the noise stream exactly.
 
+A parameter that a plan sharded (a ``DTensor``) is stepped on this rank's
+piece, its moments are pieces of the same shape, and every rounding of the
+piece passes where it lies in the whole tensor (``ops/stochastic.py``
+``shard_index``): each element draws the bits it draws in the unsharded
+step, so sharding changes no rounding.
+
 The optimizer owns the parameter write and takes its gradients explicitly:
 ``step(grads)`` with fp32 gradients in the order of ``params``
 (``accepts_fp32_grads``); the train step hands them over without casting
@@ -32,7 +38,12 @@ from collections.abc import Callable, Iterable
 import numpy as np
 import torch
 
-from d9d_tpu_torch.ops.stochastic import fold_seed, stochastic_round_to_bf16
+from d9d_tpu_torch.ops.stochastic import (
+    fold_seed,
+    shard_index,
+    stochastic_round_to_bf16,
+)
+from d9d_tpu_torch.parallel.shards import local_tensor, shard_bounds
 
 _ROLE_PARAM, _ROLE_MU, _ROLE_NU = 0, 1, 2
 
@@ -62,18 +73,26 @@ class StochasticAdamW:
         self.moment_dtype = moment_dtype
         self.seed = seed
         self.count = 0  # updates applied so far
-        self.mu = [torch.zeros_like(p, dtype=moment_dtype) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=moment_dtype) for p in self.params]
+        with torch.no_grad():
+            local = [local_tensor(p) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=moment_dtype) for p in local]
+        self.nu = [torch.zeros_like(p, dtype=moment_dtype) for p in local]
+        # where each (piece of a) parameter lies in the whole tensor
+        self._index = [shard_index(tuple(p.shape), shard_bounds(p))
+                       for p in self.params]
 
     def lr_at(self, count: int) -> float:
         """The learning rate of update ``count`` (0-based)."""
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
-    def _write(self, dst: torch.Tensor, x32: torch.Tensor, seed: int) -> None:
+    def _write(self, dst: torch.Tensor, x32: torch.Tensor, seed: int,
+               index: tuple[int, int, int]) -> None:
         """``dst <- x32``: stochastically rounded into bf16, else a cast."""
         if dst.dtype == torch.bfloat16:
-            stochastic_round_to_bf16(x32, seed, out=dst)
+            offset, cols, row_stride = index
+            stochastic_round_to_bf16(x32, seed, out=dst, index_offset=offset,
+                                     cols=cols, row_stride=row_stride)
         elif x32 is not dst:
             dst.copy_(x32)
 
@@ -93,6 +112,7 @@ class StochasticAdamW:
         c2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
         for i, (p, g, m, v) in enumerate(zip(self.params, grads, self.mu,
                                              self.nu)):
+            p, index = local_tensor(p), self._index[i]
             g32 = g.float()
             # fp32 moments are updated in place; bf16 ones through a copy
             m32 = m.float().mul_(self.b1).add_(g32, alpha=1.0 - self.b1)
@@ -107,9 +127,12 @@ class StochasticAdamW:
                 upd.add_(p32, alpha=self.weight_decay)
             p32.sub_(upd, alpha=lr)
             del upd
-            self._write(p, p32, fold_seed(self.seed, count, i, _ROLE_PARAM))
-            self._write(m, m32, fold_seed(self.seed, count, i, _ROLE_MU))
-            self._write(v, v32, fold_seed(self.seed, count, i, _ROLE_NU))
+            self._write(p, p32, fold_seed(self.seed, count, i, _ROLE_PARAM),
+                        index)
+            self._write(m, m32, fold_seed(self.seed, count, i, _ROLE_MU),
+                        index)
+            self._write(v, v32, fold_seed(self.seed, count, i, _ROLE_NU),
+                        index)
         self.count = count
 
     def state_dict(self) -> dict:

@@ -305,12 +305,23 @@ def test_cp_trainer_matches_jax_cp_trainer_and_one_process(tmp_path):
 
 
 def test_cp_mesh_refusals():
-    with pytest.raises(RuntimeError, match="needs a process group"):
-        MeshParameters(cp_shard=2).build(["cpu", "cpu"])
-    for kw in (dict(dp_replicate=2), dict(cp_replicate=2),
-               dict(cp_shard=2, tp=2)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+    for kw in (dict(cp_shard=2), dict(dp_replicate=2, cp_shard=2)):
+        with pytest.raises(RuntimeError, match="needs a process group"):
             MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
+    for kw, item in ((dict(cp_replicate=2), "A3.2"),
+                     (dict(cp_shard=2, tp=2), "A3.2"),
+                     (dict(cp_shard=2, pp=2), "A8"),
+                     (dict(cp_shard=2, ep_shard=2), "A3.3")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
+    # the ring over head axes (tensor parallelism) is still to port
+    from d9d_tpu_torch.core.mesh import MeshContext
+    from d9d_tpu_torch.ops.attention.ring import make_ring_sdpa
+
+    tp_ctx = MeshContext(params=MeshParameters(cp_shard=2, tp=2),
+                         device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3.2"):
+        make_ring_sdpa(tp_ctx, head_axes=("tp",))
     with pytest.raises(ValueError, match="not divisible"):
         from d9d_tpu_torch.loop.components.batch_staging import (
             check_cp_seq_len,

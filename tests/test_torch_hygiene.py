@@ -91,6 +91,11 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/ops/attention/ring.py",
         "d9d_tpu_torch/core/distributed.py",
         "d9d_tpu_torch/core/collectives.py",
+        "d9d_tpu_torch/core/determinism.py",
+        "d9d_tpu_torch/nn/logical_axes.py",
+        "d9d_tpu_torch/parallel/plan.py",
+        "d9d_tpu_torch/parallel/shards.py",
+        "d9d_tpu_torch/loop/model_factory.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {

@@ -355,8 +355,14 @@ def test_trainer_config_defaults_match_jax_except_the_pinned_three():
 
 def test_unported_options_raise():
     assert isinstance(build_optimizer(AdamWConfig(), [], 1e-3), AdamW)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        MeshParameters(dp_replicate=2).build(["cpu"])
+    # the mesh axes still to port raise before any process group is asked
+    # for, each naming its ROADMAP item
+    for kw, item in ((dict(pp=2), "A8"), (dict(tp=2), "A3.2"),
+                     (dict(cp_replicate=2), "A3.2"),
+                     (dict(dp_shard=2, ep_shard=2), "A3.3")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            MeshParameters(**kw).build(
+                ["cpu"] * MeshParameters(**kw).world_size)
     cfg = dataclasses.replace(Qwen3DenseConfig.tiny(), remat=True,
                               remat_policy="dots_no_batch")
     with pytest.raises(NotImplementedError, match="remat_policy"):
