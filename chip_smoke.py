@@ -2020,59 +2020,85 @@ def _sr_share_ok(fn):
 
 # FSDP's pieces at Qwen3-8B widths and dp_shard 2: the gate/up projections
 # [12288, 4096] cut on dim 1 (columns: one run of the flat index per row),
-# the embedding [151936, 4096] cut on dim 0 (rows: one run); and narrow
-# shapes whose pieces' rows are not a multiple of 4 (the element-wise
-# strided path), cut in 3 as torch.chunk cuts them
-SR_SHARD_CASES = (((12288, 4096), 1, 2), ((151936, 4096), 0, 2),
-                  ((1001, 37), 1, 3), ((1001, 37), 0, 3))
+# the embedding [151936, 4096] cut on dim 0 (rows: one run); narrow shapes
+# whose pieces' rows are not a multiple of 4 (the element-wise strided
+# path), cut in 3 as torch.chunk cuts them; and the pieces of tensor
+# parallelism with FSDP at tp 2 x dp_shard 2: q_proj [4096, 4096] cut by tp
+# on dim 0 and by the fsdp axes on dim 1 (a block), the vocab table cut by
+# tp and then, inside each tp slice, by the fsdp axes on dim 0 (FSDP2's
+# strided piece). Each case: (shape, ((dim, parts), ...) outer cut first)
+SR_SHARD_CASES = (((12288, 4096), ((1, 2),)), ((151936, 4096), ((0, 2),)),
+                  ((1001, 37), ((1, 3),)), ((1001, 37), ((0, 3),)),
+                  ((4096, 4096), ((0, 2), (1, 2))),
+                  ((151936, 4096), ((0, 2), (0, 2))))
+
+
+def _nested_bounds(shape, cuts, ranks):
+    """``[(dim, start, length)]`` of the piece at ``ranks`` (one rank per
+    cut), each cut torch.chunk's of what the cuts before it left
+    (``parallel/shards.py`` ``shard_bounds``)."""
+    bounds = {}
+    for (dim, parts), r in zip(cuts, ranks):
+        lo, n = bounds.get(dim, (0, shape[dim]))
+        chunk = -(-n // parts)
+        start = min(r * chunk, n)
+        bounds[dim] = (lo + start, max(0, min(chunk, n - start)))
+    return [(d, lo, n) for d, (lo, n) in sorted(bounds.items())]
 
 
 def _sr_shard_cases(gen, seed, bits):
     """B10 on pieces at their index offsets: each piece bit for bit
     against the plain version at the same offsets, and against the same
-    elements of the whole tensor's rounding; the widest column piece
-    timed."""
+    elements of the whole tensor's rounding; the widest column piece and
+    the block piece timed."""
+    import itertools
+
     from d9d_tpu_torch.ops.stochastic import (
         shard_index,
         stochastic_round_to_bf16,
         stochastic_round_to_bf16_plain,
     )
 
-    cases, timed = [], None
-    for shape, dim, parts in SR_SHARD_CASES:
+    cases, timed = [], {}
+    for shape, cuts in SR_SHARD_CASES:
         x = _sr_input(shape, gen)
         whole = bits(stochastic_round_to_bf16(x, seed))
-        n = shape[dim]
-        chunk = -(-n // parts)
-        for r in range(parts):
-            a = min(r * chunk, n)
-            length = min(chunk, n - a)
-            piece = x.narrow(dim, a, length).contiguous()
-            off, cols, stride = shard_index(shape, [(dim, a, length)])
+        for ranks in itertools.product(*(range(p) for _, p in cuts)):
+            bounds = _nested_bounds(shape, cuts, ranks)
+            idx = [slice(None)] * len(shape)
+            for d, a, n in bounds:
+                idx[d] = slice(a, a + n)
+            idx = tuple(idx)
+            piece = x[idx].contiguous()
+            off, cols, stride = shard_index(shape, bounds)
             kw = dict(index_offset=off, cols=cols, row_stride=stride)
             got = bits(stochastic_round_to_bf16(piece, seed, **kw))
             torch.cuda.synchronize()
             vs_plain = int((got != bits(stochastic_round_to_bf16_plain(
                 piece, seed, **kw))).sum())
-            vs_whole = int((got != whole.narrow(dim, a, length)).sum())
+            vs_whole = int((got != whole[idx]).sum())
             if vs_plain or vs_whole:
                 raise AssertionError(
-                    f"stochastic_round piece {r} of {list(shape)} on dim "
-                    f"{dim}: {vs_plain} bits differ from the plain version, "
-                    f"{vs_whole} from the whole tensor's rounding")
-            cases.append({"shape": list(shape), "dim": dim, "piece": r,
+                    f"stochastic_round piece {ranks} of {list(shape)} cut "
+                    f"{cuts}: {vs_plain} bits differ from the plain "
+                    f"version, {vs_whole} from the whole tensor's rounding")
+            cases.append({"shape": list(shape), "cuts": cuts,
+                          "piece": list(ranks), "bounds": bounds,
                           "index": [off, cols, stride],
                           "differing_bits_vs_plain": vs_plain,
                           "differing_bits_vs_whole": vs_whole})
-            if timed is None and dim == 1:
+            kind = ("block" if len(bounds) == 2 else
+                    "column" if bounds[0][0] == 1 else None)
+            if kind is not None and kind not in timed:
                 m = piece.numel()
-                timed = {"shape": list(piece.shape), "index": [off, cols,
-                                                                 stride],
-                         "ms": time_ms(lambda: stochastic_round_to_bf16(
-                             piece, seed, **kw), iters=10, warmup=2),
-                         "whole_ms": time_ms(lambda: stochastic_round_to_bf16(
-                             piece, seed), iters=10, warmup=2),
-                         "bound_ms": 1e3 * 6 * m / H100_BYTES_PER_S}
+                timed[kind] = {
+                    "shape": list(piece.shape), "of": list(shape),
+                    "index": [off, cols, stride],
+                    "ms": time_ms(lambda: stochastic_round_to_bf16(
+                        piece, seed, **kw), iters=10, warmup=2),
+                    "whole_ms": time_ms(lambda: stochastic_round_to_bf16(
+                        piece, seed), iters=10, warmup=2),
+                    "bound_ms": 1e3 * 6 * m / H100_BYTES_PER_S}
             del piece, got
         del x, whole
         torch.cuda.empty_cache()
@@ -2176,11 +2202,13 @@ def check_stochastic_round(gen):
         "library_ms": None, "cast_ms": main["cast_ms"],
         "ms_embedding_leaf": timed[(151936, 4096)]["ms"],
         "bound_ms_embedding_leaf": timed[(151936, 4096)]["bound_ms"],
-        "ms_column_piece": shard_timed["ms"],
-        "bound_ms_column_piece": shard_timed["bound_ms"],
+        "ms_column_piece": shard_timed["column"]["ms"],
+        "bound_ms_column_piece": shard_timed["column"]["bound_ms"],
+        "ms_block_piece": shard_timed["block"]["ms"],
+        "bound_ms_block_piece": shard_timed["block"]["bound_ms"],
     }, {
         "cases": cases, "shard_cases": shard_cases,
-        "column_piece_timing": shard_timed, "tolerance": "bitwise",
+        "piece_timing": shard_timed, "tolerance": "bitwise",
         "timed_shape": [4096, 12288],
         "shares_up": shares, "share_tol": SR_SHARE_TOL, "draws": SR_DRAWS,
         "round_to_nearest_control_shares": rtn_shares,
@@ -4444,6 +4472,342 @@ def phase_dp_train(ranks=DP_RANKS, backend="gloo",
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel training on the card (tp_plan and
+# fsdp_plan(with_tp=True), the ring over each rank's head slice, B10 on
+# block pieces)
+#
+# Ranks share the one card over gloo, as phase 10's do: DTensor's
+# all-reduces take CUDA tensors on gloo (its all-gathers do not, and no run
+# gathers a DTensor), and the port's own sums cross through pinned host
+# memory. The runs are held to the one-process trainer on the same seeded
+# weights and batches, and the main run gives its times; the ranks
+# time-share one card, so it measures no tensor-parallel scaling. On a
+# machine with N cards, ``python3 chip_smoke.py --tp-only nccl N`` runs
+# this phase alone with one card per rank over NCCL.
+
+TP_CHILD_TIMEOUT_S = 600
+TP_TRAIN_TOL = 1e-4  # fp32 compute: sums in other orders (heads, rows split)
+# Qwen3-8B widths (32/8 heads of 128, hidden 4096, intermediate 12288,
+# vocab 151936) at ``layers`` of 36; ``rows`` a step (one microbatch), each
+# ``seq`` tokens. (a) tp 2; (b) dp_shard 2 x tp 2, fp32 and bf16 parameters
+# (StochasticAdamW: B10 on block pieces); (c) cp_shard 2 x tp 2, the ring
+# on each rank's 16 of 32 query heads and 4 of 8 kv heads; (d) the main
+# run, tp 2, timed and profiled.
+TP_RUNS = {
+    "tp_compare": dict(mesh=dict(tp=2), plan="tp", layers=1, seq=2048,
+                       steps=2, rows=1, dtype=torch.float32,
+                       param_dtype=torch.float32),
+    "fsdp_tp_compare": dict(mesh=dict(dp_shard=2, tp=2), plan="fsdp_tp",
+                            layers=1, seq=2048, steps=1, rows=2,
+                            dtype=torch.float32, param_dtype=torch.float32),
+    "fsdp_tp_bf16": dict(mesh=dict(dp_shard=2, tp=2), plan="fsdp_tp",
+                         layers=1, seq=2048, steps=1, rows=2,
+                         dtype=torch.float32, param_dtype=torch.bfloat16),
+    "ring_tp_compare": dict(mesh=dict(cp_shard=2, tp=2), plan="fsdp_tp",
+                            layers=1, seq=4096, steps=1, rows=1,
+                            dtype=torch.float32, param_dtype=torch.float32),
+    "main": dict(mesh=dict(tp=2), plan="tp", layers=2, seq=4096, steps=2,
+                 rows=1, dtype=torch.bfloat16, param_dtype=torch.float32),
+}
+TP_COMPARE = ("tp_compare", "fsdp_tp_compare", "fsdp_tp_bf16",
+              "ring_tp_compare")
+# host-side events of the collectives on the step's thread: DTensor's
+# (launch and wait) and the port's own sums and maxima
+# (core/collectives.py); the backend's own threads record theirs as
+# "gloo:..." / "nccl:...", which overlap the step and are not counted
+TP_COLLECTIVE_EVENTS = ("all_reduce", "allreduce", "wait_tensor")
+TP_BACKEND_THREADS = ("gloo:", "nccl:")
+
+
+def _tp_trainer(ctx, mesh, plan, layers, seq, steps, rows, dtype,
+                param_dtype, seed=7):
+    """A Trainer at Qwen3-8B widths and ``layers`` layers, full remat,
+    ``rows`` rows a step, weights drawn from ``seed``; ``plan`` (it cuts
+    nothing on a mesh of one rank), the ring backend under cp_shard > 1;
+    AdamW for fp32 parameters, StochasticAdamW for bf16 ones."""
+    import dataclasses
+
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
+    from d9d_tpu_torch.nn.sdpa import SdpaRingConfig
+    from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
+    from d9d_tpu_torch.parallel import fsdp_plan, tp_plan
+
+    Provider, schedule = _train_parts()
+
+    class Planned(Provider):
+        def build_module(self, ctx):
+            if ctx.cp_size == 1:
+                return super().build_module(ctx)
+            return Qwen3DenseCausalLM(
+                self.cfg, build_sdpa_backend(SdpaRingConfig(), ctx=ctx),
+                dtype=self.dtype, param_dtype=self.param_dtype,
+                device=ctx.device, seed=self.seed)
+
+        def build_plan(self, ctx):
+            return (tp_plan(ctx) if plan == "tp"
+                    else fsdp_plan(ctx, with_tp=True))
+
+    cfg = dataclasses.replace(Qwen3DenseConfig.qwen3_8b(), num_layers=layers)
+    bf16 = param_dtype == torch.bfloat16
+    return Trainer(
+        ctx=ctx,
+        config=TrainerConfig(global_batch_size=rows, microbatch_size=rows,
+                             seq_len=seq, total_steps=steps, log_every=1,
+                             max_grad_norm=1.0),
+        model_provider=Planned(cfg, dtype, False, seed=seed,
+                               param_dtype=param_dtype),
+        dataset_provider=_Batches(cfg.vocab_size, steps, rows, seq,
+                                  seed=seed + 1, loss_mask=True),
+        task=CausalLMTask(),
+        optimizer_provider=(_stochastic_adamw_provider(weight_decay=0.1)
+                            if bf16 else AdamWProvider(weight_decay=0.1)),
+        learning_rate=schedule(3e-4, steps) if steps > 2 else 3e-4)
+
+
+def _tp_runs(world):
+    """The runs of a spawn of ``world`` ranks."""
+    import math
+
+    return [tag for tag, run in TP_RUNS.items()
+            if math.prod(run["mesh"].values()) == world]
+
+
+def _collective_host_ms(prof):
+    """Host ms in the collective events of ``prof`` (an event inside
+    another counted one is not counted again), by event name."""
+    out = {}
+    for e in prof.events():
+        if (e.name.startswith(TP_BACKEND_THREADS)
+                or not any(k in e.name for k in TP_COLLECTIVE_EVENTS)):
+            continue
+        parent, nested = e.cpu_parent, False
+        while parent is not None and not nested:
+            nested = any(k in parent.name for k in TP_COLLECTIVE_EVENTS)
+            parent = parent.cpu_parent
+        if not nested:
+            out[e.name] = out.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    return out
+
+
+def tp_worker(rank, world, rdzv, backend):
+    """One rank of phase 11 (``chip_smoke.py --tp-worker RANK WORLD
+    RENDEZVOUS BACKEND``): the comparison runs of its world size, then, at
+    2 ranks, the main run under the host profiler; every result is a JSON
+    line tagged with the rank."""
+    import contextlib
+    import gc
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.ops import kernel_lib
+    from d9d_tpu_torch.parallel.shards import local_tensor
+    from d9d_tpu_torch.parallel.shards import vocab_slice
+
+    def say_rank(**obj):
+        say(rank=rank, phase="tp_train", **obj)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    try:
+        for tag in _tp_runs(world):
+            run = TP_RUNS[tag]
+            ctx = MeshParameters(**run["mesh"]).build(
+                _cp_devices(world, backend))
+            torch.cuda.reset_peak_memory_stats()
+            _cp_reset_counters()
+            t0 = time.perf_counter()
+            trainer = _tp_trainer(ctx, **run)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            seen = []
+            trainer.module.lm_head.register_forward_pre_hook(
+                lambda m, args: seen.append(
+                    vocab_slice(m.weight)[0].shape[0]))
+            _cp_reset_counters()
+            with (profile(activities=[ProfilerActivity.CPU])
+                  if tag == "main" else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                hist = trainer.train()
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            got = _cp_counters()
+            vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+            if len(hist) != run["steps"] or not all(map(math.isfinite,
+                                                         vals)):
+                raise AssertionError(f"tp rank {rank} {tag}: bad history "
+                                     f"{vals}")
+            line = dict(
+                entry=tag, steps=[{"loss": h["loss"],
+                                   "grad_norm": h["grad_norm"]}
+                                  for h in hist],
+                ms_per_step_all=[1e3 * w for w in
+                                 [hist[0]["wall_s"]] + [
+                                     b["wall_s"] - a["wall_s"]
+                                     for a, b in zip(hist, hist[1:])]],
+                build_seconds=build_s, train_seconds=train_s,
+                lm_head_rows=sorted(set(seen)),
+                tp_rank=ctx.tp_rank, cp_rank=ctx.cp_rank,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                counters=got)
+            if tag == "main":
+                with torch.no_grad():
+                    held = sum(local_tensor(p).numel()
+                               for p in trainer.module.parameters())
+                regions = _collective_host_ms(prof)
+                line.update(
+                    model="qwen3_8b", layers=run["layers"],
+                    layers_reduced_from=36,
+                    params=sum(p.numel()
+                               for p in trainer.module.parameters()),
+                    params_on_rank=held, tokens_per_step=run["seq"],
+                    setup={"plan": "tp", "tp": world,
+                           "param_dtype": "float32", "dtype": "bfloat16",
+                           "remat": "full", "optimizer": "AdamW",
+                           "backend": backend,
+                           "device": str(ctx.device) + (
+                               " (shared)" if backend == "gloo" else "")},
+                    ms_per_step=line["ms_per_step_all"][-1],
+                    ms_per_step_is_of="the last step",
+                    ms_per_step_is=(
+                        "two ranks time-share one card; every all-reduce "
+                        "crosses loopback TCP through host memory, under "
+                        "the host profiler: no TP throughput"
+                        if backend == "gloo" else
+                        f"one card per rank over {backend}, under the host "
+                        f"profiler"),
+                    collective_host_ms=regions,
+                    collective_share_of_steps=sum(regions.values())
+                    / (1e3 * train_s))
+            say_rank(**line)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+
+
+def phase_tp_train(backend="gloo", max_ranks=4,
+                   timeout_s=TP_CHILD_TIMEOUT_S):
+    """Phase 11 in the parent: the one-process reference runs, then a
+    spawn of 2 ranks (runs (a) and (d)) and one of 4 ((b) and (c)), as far
+    as ``max_ranks`` allows; their lines are checked and re-emitted.
+    Returns the launches of the sharded runs (all ranks)."""
+    import gc
+    import math
+
+    from d9d_tpu_torch.core import MeshParameters
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 11 needs {max_ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worlds = [w for w in (2, 4) if w <= max_ranks]
+    ref = {}
+    for tag in TP_COMPARE:
+        run = TP_RUNS[tag]
+        if math.prod(run["mesh"].values()) not in worlds:
+            continue
+        trainer = _tp_trainer(MeshParameters().build(), **run)
+        ref[tag] = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                    for h in trainer.train()]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    runs = {}
+    for world in worlds:
+        lines = _spawn_ranks("--tp-worker", world, backend, timeout_s)
+        for tag in _tp_runs(world):
+            runs[tag] = [next(o for o in lines[r] if o.get("entry") == tag)
+                         for r in range(world)]
+    for tag, per_rank in runs.items():
+        if any(o["steps"] != per_rank[0]["steps"] for o in per_rank):
+            raise AssertionError(f"tp ranks disagree in {tag}: {per_rank}")
+    rel = {}
+    for tag in ref:
+        got = runs[tag][0]["steps"]
+        rel[tag] = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                     for k in ("loss", "grad_norm")}
+                    for g, w in zip(got, ref[tag])]
+        rule = "bf16_params" if tag == "fsdp_tp_bf16" else "compare"
+        bad = [(i, k, v) for i, r in enumerate(rel[tag]) for k, v in r.items()
+               if v > _dp_tolerance(rule, i, k)]
+        if len(got) != len(ref[tag]) or bad:
+            raise AssertionError(
+                f"tp {tag} vs one process: {rel[tag]}, over the rule: {bad}")
+    from d9d_tpu_torch.models.qwen3 import Qwen3DenseConfig
+
+    vocab = Qwen3DenseConfig.qwen3_8b().vocab_size
+    for tag, per_rank in runs.items():
+        run = TP_RUNS[tag]
+        per_fwd = run["steps"] * run["layers"] * 2  # remat: twice a layer
+        per_bwd = run["steps"] * run["layers"]
+        for r, o in enumerate(per_rank):
+            c = o["counters"]
+            if o["lm_head_rows"] != [vocab // 2]:
+                raise AssertionError(
+                    f"tp rank {r} {tag}: the LM head held "
+                    f"{o['lm_head_rows']} vocab rows in a forward")
+            if tag == "ring_tp_compare":
+                # cp rank i attends i + 1 chunks (the rest lie in its
+                # causal future); the backward launches dq and dk/dv
+                n_fwd = per_fwd * (o["cp_rank"] + 1)
+                n_bwd = 2 * per_bwd * (o["cp_rank"] + 1)
+                want = {"flash_block": n_fwd + n_bwd, "flash_fwd": n_fwd,
+                        "flash_bwd_dq": n_bwd // 2,
+                        "flash_bwd_dkv": n_bwd // 2}
+            else:
+                want = {"flash_fwd": per_fwd, "flash_bwd_dq": per_bwd,
+                        "flash_bwd_dkv": per_bwd, "flash_block": 0}
+            want.update(plain_calls=0, eager_calls=0, ring_eager_blocks=0)
+            if tag == "fsdp_tp_bf16" and c["stochastic_round"] <= 0:
+                raise AssertionError(f"tp rank {r}: bf16 run rounded none")
+            if {k: c[k] for k in want} != want:
+                raise AssertionError(
+                    f"tp rank {r} {tag}: counters {c}, expected {want}")
+    main = runs.get("main", [])
+    say(phase="tp_train", entry="summary", ranks=worlds, backend=backend,
+        torch=torch.__version__,
+        compare={tag: {"one_process": ref[tag],
+                       "sharded": runs[tag][0]["steps"],
+                       "rel_diff": rel[tag]} for tag in ref},
+        tolerance={"fp32": TP_TRAIN_TOL, "bf16_params": {
+            "step_1_loss": TP_TRAIN_TOL, "other": DP_ROUNDED_TOL}},
+        runs={k: {kk: str(vv) for kk, vv in v.items()}
+              for k, v in TP_RUNS.items()},
+        losses=[s_["loss"] for s_ in main[0]["steps"]] if main else None,
+        ms_per_step=[m["ms_per_step"] for m in main],
+        peak_memory_gb=[m["peak_memory_bytes"] / 1e9 for m in main],
+        collective_share_of_steps=[m["collective_share_of_steps"]
+                                   for m in main],
+        ranks_equal=True, seconds=time.perf_counter() - t0)
+    launches = {}
+    for per_rank in runs.values():
+        for o in per_rank:
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "flash_block", "stochastic_round"):
+                launches[k] = launches.get(k, 0) + o["counters"][k]
+    return launches
+
+
 def main():
     import gc
 
@@ -4465,7 +4829,7 @@ def main():
     for phase in (phase_full_width_moe, phase_full_width_train,
                   phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train,
-                  phase_dp_train):
+                  phase_dp_train, phase_tp_train):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()
@@ -4491,6 +4855,15 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    elif sys.argv[1:2] == ["--tp-only"]:
+        # phase 11 alone: python3 chip_smoke.py --tp-only nccl 4
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="tp_train", launches=phase_tp_train(
+            sys.argv[2], int(sys.argv[3]), timeout_s=300))
     elif sys.argv[1:2] == ["--dp-only"]:
         # phase 10 alone: python3 chip_smoke.py --dp-only nccl 4
         print(phase_device(), flush=True)

@@ -8,6 +8,12 @@ place; and the host collectives of metrics and objects
 objects. ``group=None`` means the default group; with no process group, or
 a group of one, the host collectives return their input.
 
+Tensor parallelism's collectives inside the model are autograd pairs,
+Megatron's ``f`` and ``g`` (:func:`copy_to_group`: identity forward, sum
+backward; :func:`reduce_from_group`: sum forward, identity backward), and
+:func:`all_reduce_max_`; there ``group=None`` means no group (the tensor
+itself).
+
 The JAX package names mesh axes inside ``shard_map``; the port names a
 ``torch.distributed`` group. Tensors travel in buckets of at most
 ``BUCKET_BYTES``: each bucket is one collective call on one flat buffer,
@@ -144,6 +150,58 @@ def broadcast(tensors: list[torch.Tensor], group=None, src: int = 0) -> None:
 
 
 broadcast.host_staged_bytes = 0
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        all_reduce_sum([grad], ctx.group)
+        return grad, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        all_reduce_sum([out], group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group``: a whole input
+    (or weight) that each rank applies to its own part of the work, whose
+    gradient is the sum of the ranks' parts (``None``: ``x`` itself)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, its gradient passed through as it is:
+    each rank's partial result, summed into the whole one that every rank
+    then holds, whose gradient is already whole on every rank (``None``:
+    ``x`` itself)."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group``, in place (no
+    gradient: the callers use it as a shift that cancels; ``None``: ``x``
+    itself)."""
+    if group is not None:
+        _bucketed("all_reduce", [x], group,
+                  lambda buf: dist.all_reduce(buf, op=dist.ReduceOp.MAX,
+                                              group=group),
+                  fill=True, write_back=True)
+    return x
 
 
 class ReduceOp(str, Enum):

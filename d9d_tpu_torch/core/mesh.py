@@ -14,9 +14,11 @@ this rank's index on it.
 
 A mesh of one rank needs no process group and holds no ``DeviceMesh``:
 every group is ``None`` and every coordinate 0. Of the axes, ``dp_r``,
-``dp_s`` and ``cp_s`` can be larger than 1; ``pp``, ``tp``, ``cp_r`` and
+``dp_s``, ``cp_s``, ``cp_r`` and ``tp`` can be larger than 1; ``pp`` and
 ``ep_shard`` larger than 1 raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+ROADMAP item that ports them. Ranks along ``tp`` and ``cp_r`` hold the
+same rows and sequence chunk: ``tp`` cuts the parameters
+(``parallel/plan.py``), ``cp_r`` replicates everything.
 """
 
 import dataclasses
@@ -46,8 +48,7 @@ MESH_AXIS_NAMES: tuple[str, ...] = (
 )
 
 # axes that may not exceed 1 yet, with the ROADMAP item that ports each
-_UNPORTED_AXES = {"pp": "A8", "tp": "A3.2", "cp_replicate": "A3.2",
-                  "ep_shard": "A3.3"}
+_UNPORTED_AXES = {"pp": "A8", "ep_shard": "A3.3"}
 
 
 def _suffix_axes_covering(
@@ -269,10 +270,38 @@ class MeshContext:
         return idx
 
     @property
+    def data_axes(self) -> tuple[str, ...]:
+        """Axes over which the global batch's rows and positions are cut
+        (``batch_axes`` and ``sequence_axes``): a step's sums run over
+        them. Ranks along the other axes (``cp_r``, ``tp``) hold the same
+        rows and positions, so a sum over those would count them twice."""
+        return self.batch_axes + self.sequence_axes
+
+    @property
     def cp_group(self) -> "dist.ProcessGroup | None":
         """The ring's group (``None`` for ``cp_shard = 1``: a ring of one
-        rank)."""
+        rank): the ``cp_s`` ranks at this rank's ``(dp_r, dp_s, cp_r,
+        tp)`` coordinate."""
         return self.group(AXIS_CP_SHARD) if self.cp_size > 1 else None
+
+    @property
+    def tp_size(self) -> int:
+        return self.params.tp
+
+    @property
+    def tp_mesh(self):
+        """The 1-D ``DeviceMesh`` over ``tp`` at this rank's other
+        coordinates (``None`` for ``tp = 1``)."""
+        return self.submesh(AXIS_TP) if self.tp_size > 1 else None
+
+    @property
+    def tp_group(self) -> "dist.ProcessGroup | None":
+        """The tensor-parallel group (``None`` for ``tp = 1``)."""
+        return self.group(AXIS_TP) if self.tp_size > 1 else None
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coordinate(AXIS_TP)
 
     @property
     def cp_rank(self) -> int:

@@ -7,8 +7,8 @@ its shard. The port does the same with PyTorch's meta device:
 
 1. the provider builds the module on the meta device (shapes only, nothing
    drawn, no memory);
-2. the plan is applied (``parallel/plan.py``: ``fully_shard`` turns each
-   sharded parameter into a meta ``DTensor``);
+2. the plan is applied (``parallel/plan.py``: tensor parallelism and
+   ``fully_shard`` turn each parameter they cut into a meta ``DTensor``);
 3. ``to_empty`` gives every rank's pieces (and the whole replicated
    parameters) storage on the context's device;
 4. every module's ``reset_parameters(generator)`` runs in module order,
@@ -19,8 +19,8 @@ its shard. The port does the same with PyTorch's meta device:
 Step 4 consumes the generator's stream as the one-process constructor
 does, so the gathered parameters equal the one-process build's bit for
 bit, and no rank holds more than one parameter whole at a time. A plan
-that shards nothing (the replicate plan, or a mesh whose fsdp axes are all
-1) builds the module on the device directly, as before.
+that cuts nothing (the replicate plan, or a mesh whose axes it maps are
+all 1) builds the module on the device directly, as before.
 """
 
 import dataclasses

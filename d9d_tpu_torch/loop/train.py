@@ -1,22 +1,24 @@
 """Trainer: wires providers into the step and runs the loop (counterpart of
 ``d9d_tpu/loop/train.py``), on one device or over a mesh of processes
-(``dp_r x dp_s x cp_s``), without pipeline parallelism or PEFT.
+(``dp_r x dp_s x cp_s x cp_r x tp``), without pipeline parallelism or
+PEFT.
 
 The model comes from the provider through the model factory
 (``loop/model_factory.py``) and the provider's plan
-(``ModelProvider.build_plan``). Under ``fsdp_plan`` / ``hsdp_plan`` each
-rank initializes and holds only its pieces of the sharded parameters.
-Under the replicate plan (the default) every rank builds the whole model
-and takes rank 0's parameters by one broadcast at build, so no two ranks
-can start apart. Either way the optimizer states stay equal across
-replicas because the gradients are summed over the mesh. Every rank reads
-the same global batch and stages its rows (its ``(dp_r, dp_s)``
-coordinate) and its sequence chunk (its ``cp_s`` coordinate); the step
-sums over the gradient-reduce axes, so the history is the same on every
-rank. Under ``cp_shard > 1`` the model must attend across ranks (the ring
-sdpa backend, ``SdpaRingConfig``); MoE models on a mesh of more than one
-rank raise (expert parallelism and MoE metrics over the group: ROADMAP
-A3.3).
+(``ModelProvider.build_plan``). Under a plan that cuts parameters
+(``fsdp_plan`` / ``hsdp_plan``, ``tp_plan``, ``with_tp=True``) each rank
+initializes and holds only its pieces of them. Under the replicate plan
+(the default) every rank builds the whole model and takes rank 0's
+parameters by one broadcast at build, so no two ranks can start apart.
+Either way the optimizer states stay equal across replicas because the
+gradients are summed over the mesh. Every rank reads the same global batch
+and stages its rows (its ``(dp_r, dp_s)`` coordinate) and its sequence
+chunk (its ``cp_s`` coordinate); ranks along ``cp_r`` and ``tp`` stage
+the same ones. The step sums over the data axes (``dp_r x dp_s x cp_s``),
+so the history is the same on every rank. Under ``cp_shard > 1`` the
+model must attend across ranks (the ring sdpa backend,
+``SdpaRingConfig``); MoE models on a mesh of more than one rank raise
+(expert parallelism and MoE metrics over the group: ROADMAP A3.3).
 
 ``__init__`` builds batch maths → model (through the provider, on the
 context's device) → optimizer → step. ``train()`` is a host loop around the
@@ -57,7 +59,7 @@ from d9d_tpu_torch.loop.control.task import TrainTask
 from d9d_tpu_torch.loop.model_factory import build_model
 from d9d_tpu_torch.loop.train_step import build_eval_step, build_train_step
 from d9d_tpu_torch.nn.moe import MoELayer
-from d9d_tpu_torch.parallel.plan import fsdp_modules
+from d9d_tpu_torch.parallel.shards import is_sharded
 from d9d_tpu_torch.tracker import NullTracker, Tracker
 
 logger = logging.getLogger("d9d_tpu_torch.trainer")
@@ -90,16 +92,17 @@ class Trainer:
             ctx, config.global_batch_size, config.microbatch_size)
         self.stepper = Stepper(total_steps=config.total_steps)
         check_cp_seq_len(config.seq_len, ctx.cp_size)
-        # None on one device
-        self._reduce_group = ctx.group(*ctx.grad_reduce_axes)
+        # None where no other rank holds other rows or positions
+        self._reduce_group = (ctx.group(*ctx.data_axes)
+                              if ctx.axis_size(*ctx.data_axes) > 1 else None)
 
         self.module = build_model(model_provider, ctx,
                                   model_provider.build_plan(ctx),
                                   validate=self._validate_module)
-        sharded = bool(fsdp_modules(self.module))
-        if self._reduce_group is not None and not sharded:
+        sharded = any(is_sharded(p) for p in self.module.parameters())
+        if ctx.world_size > 1 and not sharded:
             with torch.no_grad():
-                broadcast(list(self.module.parameters()), self._reduce_group)
+                broadcast(list(self.module.parameters()))
         self.optimizer = optimizer_provider.build(
             self.module.parameters(),
             learning_rate if learning_rate is not None else config.learning_rate,
@@ -111,7 +114,6 @@ class Trainer:
             num_microbatches=self.batch_maths.num_microbatches,
             max_grad_norm=config.max_grad_norm,
             reduce_group=self._reduce_group,
-            shard_group=ctx.group(*ctx.fsdp_axes) if sharded else None,
         )
         self.dataset_provider = dataset_provider
         self.gc = ManualGarbageCollector(config.gc_every_steps)

@@ -22,21 +22,26 @@ The contract is the JAX step's:
 - the metrics ``loss``, ``grad_norm``, ``loss_weight`` and
   ``task/<k>`` (task statistics summed over microbatches), as device
   scalars — nothing is read back here;
-- over a mesh (``reduce_group``, the group of the gradient-reduce axes
-  ``dp_r x dp_s x cp_s``) each rank runs the microbatch loop on its rows
-  and sequence chunk, and everything is summed once a step, after the
-  loop, as the JAX step's psum: ONE sum all-reduce over the group covers
-  ``loss_sum``, ``weight_sum``, the task statistics and the fp32
-  gradients of the parameters every rank holds whole; the parameters a
-  plan sharded (``DTensor``, ``parallel/plan.py``) are reduced by FSDP at
-  the last microbatch's backward (gradient sync is off for the others),
-  summed over the shard and replicate dims into this rank's piece. Then
-  sum-then-scale; the global norm adds the squares of the whole
-  gradients (equal on every rank) to those of the pieces, summed over
-  ``shard_group`` (the fsdp axes; replicas along ``dp_r`` hold equal
-  pieces and are not summed again). Narrow sharded parameters take their
-  fp32 gradients from ``ReducedGradients``. The clip and the update follow
-  unchanged, on each rank's pieces.
+- over a mesh (``reduce_group``, the group of the data axes ``dp_r x
+  dp_s x cp_s`` over which the batch's rows and positions are cut) each
+  rank runs the microbatch loop on its rows and sequence chunk, and
+  everything is summed once a step, after the loop, as the JAX step's
+  psum: ONE sum all-reduce over the group covers ``loss_sum``,
+  ``weight_sum``, the task statistics and the fp32 gradients of the
+  parameters FSDP does not manage; the ones it manages are reduced by
+  FSDP at the last microbatch's backward (gradient sync is off for the
+  others), summed over the shard and replicate dims into this rank's
+  piece. Ranks along ``cp_r`` and ``tp`` hold the same rows and positions
+  and are not summed over: ``cp_r`` replicas compute the same sums, and
+  tensor parallelism gives every tp rank the whole loss and the whole
+  gradient of each parameter it holds whole (``core/collectives.py``; the
+  norms, ``q_norm``/``k_norm`` included) and its own piece of each
+  parameter it cut. Then sum-then-scale, and ONE rule for the global
+  norm: each gradient's squares are summed over the mesh dims its
+  parameter is cut over (none for a whole one, the fsdp axes and/or tp
+  for a ``DTensor`` piece), never over those that replicate it. Narrow
+  sharded parameters take their fp32 gradients from ``ReducedGradients``.
+  The clip and the update follow unchanged, on each rank's pieces.
 
 The anomaly guard, ZeRO sharding, the split update and the numerics plane
 are not ported: asking for them raises ``NotImplementedError``.
@@ -47,28 +52,57 @@ from collections.abc import Callable
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor
+
 from d9d_tpu_torch.core.collectives import all_reduce_sum
 from d9d_tpu_torch.loop.control.task import TrainTask
-from d9d_tpu_torch.parallel.plan import ReducedGradients, fsdp_modules
-from d9d_tpu_torch.parallel.shards import is_sharded, local_tensor
+from d9d_tpu_torch.parallel.plan import (
+    ReducedGradients,
+    fsdp_modules,
+    fsdp_params,
+)
+from d9d_tpu_torch.parallel.shards import local_tensor, shard_cuts
 
 
 def _sum_squares(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.stack([g.float().pow(2).sum() for g in grads]).sum()
 
 
-def global_grad_norm(grads: list[torch.Tensor], pieces=(),
-                     shard_group=None) -> torch.Tensor:
-    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``): ``grads``
-    whole on every rank, ``pieces`` this rank's pieces of sharded
-    gradients, their squares summed over ``shard_group``."""
-    total = _sum_squares(grads) if grads else None
-    if pieces:
-        sq = _sum_squares(list(pieces))
-        if shard_group is not None:
-            all_reduce_sum([sq], shard_group)
+def cut_groups(p: torch.Tensor) -> tuple:
+    """The process groups of the mesh dims ``p`` is cut over (``()``: a
+    whole parameter)."""
+    return tuple(p.device_mesh.get_group(mesh_dim)
+                 for _, mesh_dim in shard_cuts(p))
+
+
+def global_grad_norm(grads: list[torch.Tensor],
+                     groups: "list[tuple] | None" = None) -> torch.Tensor:
+    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``) of the
+    gradients ``grads``, each this rank's piece over the process groups
+    ``groups[i]`` (:func:`cut_groups`; ``()`` or ``None``: whole on every
+    rank): the squares of the pieces cut over the same groups are summed
+    over each of those groups in turn, once."""
+    by_groups: dict[tuple, list[torch.Tensor]] = {}
+    for g, gr in zip(grads, groups or [()] * len(grads)):
+        by_groups.setdefault(gr, []).append(g)
+    total = None
+    for gr, gs in by_groups.items():
+        sq = _sum_squares(gs)
+        for group in gr:
+            all_reduce_sum([sq], group)
         total = sq if total is None else total + sq
     return total.sqrt()
+
+
+def _set_grad(p: torch.Tensor, g: torch.Tensor) -> None:
+    """``p.grad`` := ``g`` (this rank's piece for a ``DTensor`` ``p``) in
+    ``p``'s dtype."""
+    g = g.to(p.dtype)
+    if isinstance(p, DTensor):
+        g = DTensor.from_local(g, p.device_mesh, p.placements,
+                               run_check=False, shape=p.shape,
+                               stride=p.stride())
+    p.grad = g
 
 
 def build_train_step(
@@ -84,14 +118,12 @@ def build_train_step(
     split_update: bool = False,
     numerics: bool = False,
     reduce_group=None,
-    shard_group=None,
 ) -> Callable[[list[dict]], dict[str, torch.Tensor]]:
     """Build the step over ``module``'s trainable parameters:
     ``step(microbatches) -> metrics``, taking the ``num_microbatches``
     staged microbatches of one optimizer step. ``reduce_group``: the
-    process group the step's sums are all-reduced over (``None``: one
-    process); ``shard_group``: the group over which a planned module's
-    parameters are sharded (``None``: none are, or one rank)."""
+    process group the step's sums are all-reduced over (``None``: no
+    other rank holds other rows or positions)."""
     unported = {"anomaly_policy": anomaly_policy is not None,
                 "zero": zero is not None, "split_update": split_update,
                 "numerics": numerics}
@@ -109,10 +141,13 @@ def build_train_step(
             f"parameters held in {sorted(wide)} with grad_dtype {grad_dtype}: "
             f"only parameters narrower than grad_dtype are accumulated apart")
     fp32_grads = getattr(optimizer, "accepts_fp32_grads", False)
-    sharded = [is_sharded(p) for p in params]
-    planned = bool(fsdp_modules(module))
+    managed = set(fsdp_params(module))
+    # FSDP reduces these gradients; the step sums the others
+    by_fsdp = [p in managed for p in params]
+    groups = [cut_groups(p) for p in params]
+    planned = bool(managed)
     reduced = (ReducedGradients(module)
-               if any(s and n for s, n in zip(sharded, narrow)) else None)
+               if any(f and n for f, n in zip(by_fsdp, narrow)) else None)
 
     def step(microbatches: list[dict]) -> dict[str, torch.Tensor]:
         if len(microbatches) != num_microbatches:
@@ -131,11 +166,12 @@ def build_train_step(
             loss.backward()
             with torch.no_grad():
                 for i, p in enumerate(params):
-                    if narrow[i] and not sharded[i] and p.grad is not None:
+                    if narrow[i] and not by_fsdp[i] and p.grad is not None:
+                        g = local_tensor(p.grad)
                         if accs[i] is None:
-                            accs[i] = p.grad.to(grad_dtype)
+                            accs[i] = g.to(grad_dtype)
                         else:
-                            accs[i].add_(p.grad)
+                            accs[i].add_(g)
                         p.grad = None
             loss, weight = loss.detach().float(), weight.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -148,17 +184,17 @@ def build_train_step(
             fp32 = reduced.take() if reduced is not None else {}
             grads = []
             for i, p in enumerate(params):
-                if sharded[i]:  # this rank's piece, reduced by FSDP
-                    g = (fp32.get(p) if narrow[i] else
-                         None if p.grad is None else local_tensor(p.grad))
+                if narrow[i]:
+                    g = fp32.get(p) if by_fsdp[i] else accs[i]
                 else:
-                    g = accs[i] if narrow[i] else p.grad
+                    g = None if p.grad is None else local_tensor(p.grad)
                 if g is None:  # unused by the loss: a zero gradient
                     g = torch.zeros_like(local_tensor(p),
                                          dtype=grad_dtype or p.dtype)
                 grads.append(g)
             del accs, fp32
-            whole = [g for g, s in zip(grads, sharded) if not s]
+            # this rank's rows' and positions' part, summed here
+            whole = [g for g, f in zip(grads, by_fsdp) if not f]
             if reduce_group is not None:
                 # copies: a task may hand back one tensor as both its weight
                 # and a statistic, and each must be summed once
@@ -172,18 +208,14 @@ def build_train_step(
             inv_w = 1.0 / torch.clamp(weight_sum, min=1e-8)
             torch._foreach_mul_(grads, inv_w)
             loss = loss_sum * inv_w
-            grad_norm = global_grad_norm(
-                whole, [g for g, s in zip(grads, sharded) if s], shard_group)
+            grad_norm = global_grad_norm(grads, groups)
             if max_grad_norm is not None:
                 clip = torch.clamp(
                     max_grad_norm / torch.clamp(grad_norm, min=1e-12), max=1.0)
                 torch._foreach_mul_(grads, clip)
             if not fp32_grads:
-                for i, p in enumerate(params):
-                    if not sharded[i]:
-                        p.grad = grads[i].to(p.dtype)
-                    elif p.grad is not None:
-                        local_tensor(p.grad).copy_(grads[i])
+                for p, g in zip(params, grads):
+                    _set_grad(p, g)
         if fp32_grads:
             optimizer.step(grads)
         else:
@@ -199,8 +231,8 @@ def build_train_step(
 def build_eval_step(*, module: nn.Module, task: TrainTask,
                     reduce_group=None):
     """Forward-only: ``Σ loss_sum / max(Σ weight, 1e-8)`` over the
-    microbatches (and over ``reduce_group``'s ranks: the gradient-reduce
-    axes), as a device scalar. A planned module is resharded after it:
+    microbatches (and over ``reduce_group``'s ranks: the data axes), as a
+    device scalar. A planned module is resharded after it:
     with no backward to reshard them, FSDP's root would keep its
     parameters gathered (and registered in place of its pieces)."""
     planned = bool(fsdp_modules(module))

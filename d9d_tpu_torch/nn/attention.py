@@ -42,6 +42,7 @@ from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
 from d9d_tpu_torch.ops import RopeStyle, apply_rope
 from d9d_tpu_torch.ops.attention.decode import flash_decode_attention
 from d9d_tpu_torch.ops.attention.eager import eager_sdpa
+from d9d_tpu_torch.parallel.shards import local_tensor, model_group
 
 
 @dataclasses.dataclass
@@ -415,6 +416,12 @@ class GroupedQueryAttention(nn.Module):
     ``q_norm``/``k_norm`` ``.weight [head_dim]`` with ``qk_norm``, ``sinks
     [num_heads]`` with ``use_sinks``.
 
+    Under tensor parallelism (``parallel/plan.py``) each rank computes its
+    slice of the heads: the projections give it ``num_heads / tp`` query
+    and ``num_kv_heads / tp`` kv heads, the sinks are cut the same way, and
+    ``q_norm``/``k_norm``, shared by all heads, see only the rank's, so
+    their gradients are summed over the tp group.
+
     ``decode_max_length > 0`` turns on KV-cache decode mode: ``forward``
     then needs a :class:`LayerKVCache`, writes the new k/v at the cache's
     write index (in place) and attends against the cache. The caller
@@ -541,41 +548,47 @@ class GroupedQueryAttention(nn.Module):
             k = qkv[..., h * d : (h + hkv) * d].reshape(b, t, hkv, d)
             v = qkv[..., (h + hkv) * d :].reshape(b, t, hkv, d)
         else:
-            q = self.q_proj(x).reshape(b, t, h, d)
-            k = self.k_proj(x).reshape(b, t, hkv, d)
-            v = self.v_proj(x).reshape(b, t, hkv, d)
+            # the rank's heads: all of them, or its slice under tensor
+            # parallelism
+            q = self.q_proj(x).reshape(b, t, -1, d)
+            k = self.k_proj(x).reshape(b, t, -1, d)
+            v = self.v_proj(x).reshape(b, t, -1, d)
+        h_loc = q.shape[2]
 
         if self.qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            group = model_group(self.q_proj.weight)
+            q = self.q_norm(q, grad_group=group)
+            k = self.k_norm(k, grad_group=group)
 
         # one rotation over the q and k heads together (they share cos/sin):
         # half the elementwise launches of rotating them one after the other
         qk = self._rope(torch.cat([q, k], dim=2), cos, sin)
-        q, k = qk[:, :, :h], qk[:, :, h:]
+        q, k = qk[:, :, :h_loc], qk[:, :, h_loc:]
+        sinks = None if self.sinks is None else local_tensor(self.sinks)
 
         if self.decode_max_length > 0:
             if cache is None:
                 raise ValueError(
                     "decode mode (decode_max_length > 0) needs a LayerKVCache"
                 )
-            attn = self._decode_attend(q, k, v, mask, cache, t)
+            attn = self._decode_attend(q, k, v, mask, cache, t, sinks)
         else:
             attn = self.sdpa(
                 q, k, v,
                 causal=True,
                 softmax_scale=self.softmax_scale,
                 window_size=self.window_size,
-                sinks=self.sinks,
+                sinks=sinks,
                 mask=mask,
             )
 
-        out = attn.reshape(b, t, h * d)
+        out = attn.reshape(b, t, h_loc * d)
         if self.use_output_gate:
             out = out * torch.sigmoid(self.gate_proj(x))
         return self.o_proj(out)
 
-    def _decode_attend(self, q, k, v, mask, cache: LayerKVCache, t: int):
+    def _decode_attend(self, q, k, v, mask, cache: LayerKVCache, t: int,
+                       sinks):
         """KV-cache attention: write the new k/v at the cache index (in
         place), then attend against the full static-length cache.
 
@@ -608,7 +621,7 @@ class GroupedQueryAttention(nn.Module):
                 start=start,
                 softmax_scale=self.softmax_scale,
                 window_size=self.window_size,
-                sinks=self.sinks,
+                sinks=sinks,
                 page_table=cache.page_table,
                 k_scale=cache.k_scale,
                 v_scale=cache.v_scale,
@@ -626,7 +639,7 @@ class GroupedQueryAttention(nn.Module):
                 causal=True,
                 softmax_scale=self.softmax_scale,
                 window_size=self.window_size,
-                sinks=self.sinks,
+                sinks=sinks,
                 **_prefill_segments(mask, t, s_max),
             )
         key_validity_mask = mask is None or (
@@ -639,7 +652,7 @@ class GroupedQueryAttention(nn.Module):
                 start=start,
                 softmax_scale=self.softmax_scale,
                 window_size=self.window_size,
-                sinks=self.sinks,
+                sinks=sinks,
                 kv_valid=None if mask is None else mask[:, 0, 0, :],
             )
         if q.device.type != "cpu":
@@ -654,6 +667,6 @@ class GroupedQueryAttention(nn.Module):
             cache.v.transpose(1, 2),
             causal=False,
             softmax_scale=self.softmax_scale,
-            sinks=self.sinks,
+            sinks=sinks,
             mask=_decode_slot_mask(start, t, s_max, self.window_size, mask),
         )

@@ -1,5 +1,5 @@
 """Token embeddings with named vocabulary ranges (counterpart of
-``d9d_tpu/nn/embedding.py``)."""
+``d9d_tpu/nn/embedding.py``), vocab-parallel under tensor parallelism."""
 
 import torch
 import torch.nn.functional as F
@@ -8,7 +8,8 @@ from torch import nn
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.nn.logical_axes import VOCAB, VOCAB_FEATURES
 from d9d_tpu_torch.nn.vocab_ranges import VocabRanges, vocab_size
-from d9d_tpu_torch.parallel.shards import write_whole_
+from d9d_tpu_torch.core.collectives import reduce_from_group
+from d9d_tpu_torch.parallel.shards import vocab_slice, write_whole_
 
 
 class TokenEmbedding(nn.Module):
@@ -18,6 +19,11 @@ class TokenEmbedding(nn.Module):
     (see ``nn/vocab_ranges.py``); lookup is one gather, output in ``dtype``.
     Initialized ``normal(stddev=1)`` from ``generator`` directly on the
     device.
+
+    Under tensor parallelism the table is cut on its vocab dim
+    (``parallel/plan.py``): each rank looks up the tokens that fall in its
+    rows, writes zeros for the others, and the rows are summed over the tp
+    group (``core/collectives.py``), so every rank holds the whole embedding.
     """
 
     def __init__(
@@ -53,4 +59,11 @@ class TokenEmbedding(nn.Module):
         return vocab_size(self.vocab_ranges)
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(token_ids, self.weight).to(self.dtype)
+        rows, lo, group = vocab_slice(self.weight)
+        if group is None:
+            return F.embedding(token_ids, rows).to(self.dtype)
+        local = token_ids - lo
+        inside = (local >= 0) & (local < rows.shape[0])
+        out = F.embedding(torch.where(inside, local, 0), rows)
+        out = torch.where(inside[..., None], out, 0.0)
+        return reduce_from_group(out, group).to(self.dtype)

@@ -10,7 +10,8 @@ from d9d_tpu_torch.nn.init import lecun_normal_draw_
 from d9d_tpu_torch.nn.logical_axes import VOCAB, VOCAB_FEATURES
 from d9d_tpu_torch.nn.vocab_ranges import VocabRanges, vocab_size
 from d9d_tpu_torch.ops.linear_ce import linear_cross_entropy
-from d9d_tpu_torch.parallel.shards import write_whole_
+from d9d_tpu_torch.core.collectives import reduce_from_group
+from d9d_tpu_torch.parallel.shards import vocab_slice, write_whole_
 
 # rows of the table widened to fp32 at a time when it is stored narrower
 _LOGITS_VOCAB_CHUNK = 16_384
@@ -23,6 +24,11 @@ class LanguageModellingHead(nn.Module):
     Each range's rows are drawn as the JAX package draws its ``head_<range>``
     table ``[size, hidden]``: lecun-normal with fan_in = that table's first
     axis, i.e. the range's size (flax's ``in_axis=-2``), not ``hidden``.
+
+    Under tensor parallelism the table is cut on its vocab dim: the loss is
+    the vocab-parallel cross-entropy over the rank's rows
+    (``ops/linear_ce.py``) and ``logits`` gathers the ranks' logits (a sum
+    of zero-padded slices: exact, and through the same all-reduce).
     """
 
     def __init__(
@@ -66,11 +72,14 @@ class LanguageModellingHead(nn.Module):
         in the JAX head: bf16 models multiply bf16 operands into fp32
         logits, fp32 models stay exact."""
         b, t, d = hidden.shape
+        rows, lo, group = vocab_slice(self.weight)
         loss = linear_cross_entropy(
             hidden.reshape(b * t, d).to(self.dtype),
-            self.weight,
+            rows,
             labels.reshape(b * t),
             chunk_size=self.ce_chunk_size,
+            vocab_start=lo,
+            group=group,
         )
         return loss.reshape(b, t)
 
@@ -85,13 +94,17 @@ class LanguageModellingHead(nn.Module):
         is exact, so the result is the same fp32 product.
         """
         h = hidden.float()
-        w = self.weight
-        if w.dtype == torch.float32:
-            return h @ w.T
-        out = torch.empty(
-            (*h.shape[:-1], w.shape[0]), dtype=torch.float32, device=h.device
-        )
-        for lo in range(0, w.shape[0], _LOGITS_VOCAB_CHUNK):
-            hi = min(lo + _LOGITS_VOCAB_CHUNK, w.shape[0])
-            out[..., lo:hi] = h @ w[lo:hi].float().T
+        rows, start, group = vocab_slice(self.weight)
+        if rows.dtype == torch.float32:
+            out = h @ rows.T
+        else:
+            out = torch.empty((*h.shape[:-1], rows.shape[0]),
+                              dtype=torch.float32, device=h.device)
+            for lo in range(0, rows.shape[0], _LOGITS_VOCAB_CHUNK):
+                hi = min(lo + _LOGITS_VOCAB_CHUNK, rows.shape[0])
+                out[..., lo:hi] = h @ rows[lo:hi].float().T
+        if group is not None:  # the ranks' vocab slices, gathered
+            whole = out.new_zeros((*out.shape[:-1], self.weight.shape[0]))
+            whole[..., start:start + out.shape[-1]] = out
+            out = reduce_from_group(whole, group)
         return out

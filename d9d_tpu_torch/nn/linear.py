@@ -8,6 +8,12 @@ the device from an explicit generator, the parameter held in
 ``param_dtype`` and cast to the compute dtype at use when the two differ.
 ``axes`` are the flax kernel's logical axes ``(in, out)``
 (``nn/logical_axes.py``); the weight's are those reversed.
+
+It is an ``nn.Linear`` without a bias (``nn.Linear``'s own init, which
+would draw the weight once more, is not run), so that tensor
+parallelism's DTensor styles take it (``parallel/plan.py``): under them
+``weight`` is a ``DTensor`` and the hooks of the style turn the input
+and output into and out of ``DTensor``s around this ``forward``.
 """
 
 import torch
@@ -19,7 +25,7 @@ from d9d_tpu_torch.nn.init import lecun_normal_
 from d9d_tpu_torch.nn.logical_axes import Axes
 
 
-class Projection(nn.Module):
+class Projection(nn.Linear):
     def __init__(
         self,
         in_features: int,
@@ -31,7 +37,7 @@ class Projection(nn.Module):
         device: "torch.device | str | None" = None,
         generator: torch.Generator | None = None,
     ):
-        super().__init__()
+        nn.Module.__init__(self)
         self.in_features = in_features
         self.out_features = out_features
         self.dtype = dtype
@@ -40,6 +46,7 @@ class Projection(nn.Module):
             (out_features, in_features), dtype=param_dtype or dtype,
             device=resolve_device(device),
         ))
+        self.register_parameter("bias", None)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None):

@@ -5,6 +5,7 @@ from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.ops import rms_norm
+from d9d_tpu_torch.core.collectives import copy_to_group
 
 
 class RMSNorm(nn.Module):
@@ -39,7 +40,12 @@ class RMSNorm(nn.Module):
     def logical_axes(self) -> dict:
         return {"weight": (None,)}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grad_group=None) -> torch.Tensor:
+        """``grad_group``: the group whose ranks each apply the weight to
+        their own part of the work (the attention's ``q_norm``/``k_norm``
+        under tensor parallelism, on the rank's heads); the weight's
+        gradient is summed over it, so every rank holds the whole one."""
         return rms_norm(
-            x, self.weight, eps=self.eps, zero_centered=self.zero_centered
+            x, copy_to_group(self.weight, grad_group), eps=self.eps,
+            zero_centered=self.zero_centered
         )

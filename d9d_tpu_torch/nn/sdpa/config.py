@@ -34,8 +34,9 @@ class SdpaRingConfig:
     (``ops/attention/ring.py``). Requires the model's sequence dim cut over
     ``seq_axis`` (the batch stager does it, over ``cp_s`` only: any other
     ``seq_axis`` raises) and the factory's ``ctx``. Under data
-    parallelism each rank's rows ring over its own ``cp_s`` group; head
-    axes larger than 1 raise (ROADMAP A3.2)."""
+    parallelism each rank's rows ring over its own ``cp_s`` group, under
+    tensor parallelism each rank's head slice (``head_axes``: ``tp``; other
+    head axes larger than 1 raise)."""
 
     type: str = "ring"
     seq_axis: str = "cp_s"

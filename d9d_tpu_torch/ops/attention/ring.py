@@ -52,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 from d9d_tpu_torch.core.collectives import staging_buffer, stages_through_host
-from d9d_tpu_torch.core.mesh import AXIS_CP_SHARD, MeshContext
+from d9d_tpu_torch.core.mesh import AXIS_CP_SHARD, AXIS_TP, MeshContext
 from d9d_tpu_torch.ops.attention import flash as F
 
 IMPLS = ("flash", "eager")
@@ -267,19 +267,26 @@ def make_ring_sdpa(
 
     The JAX backend shard_maps global arrays; in the port every rank's model
     already holds its own rows and sequence chunk (the batch stager cut
-    them), so the backend takes local ``[B_loc, T_loc, H, D]`` tensors and
-    the ring runs over this rank's ``cp_s`` group: under data parallelism
-    each ``(dp_r, dp_s)`` coordinate has its own ring, and ``batch_axes``
-    only name the axes the rows were cut over. The stager cuts the
-    sequence over ``cp_s`` only, so any other ``seq_axis`` raises. Head
-    axes of size > 1 (tensor parallelism composed with the ring) are not
-    ported (ROADMAP A3.2) and raise.
+    them) and, under tensor parallelism, its slice of the heads (the
+    projections gave it ``h / tp`` query and ``hkv / tp`` kv heads), so the
+    backend takes local ``[B_loc, T_loc, H_loc, D]`` tensors and the ring
+    runs over this rank's ``cp_s`` group: each ``(dp_r, dp_s, cp_r, tp)``
+    coordinate has its own ring, which moves only that rank's head slice of
+    k and v, as JAX's ``qkv_spec`` does. ``batch_axes`` and ``head_axes``
+    only name the axes the rows and heads were cut over; the divisibility
+    JAX checks here is checked where the port cuts: rows by the batch axes
+    (``BatchMaths``), the sequence by ``cp_s`` (``check_cp_seq_len``) and
+    the heads by ``tp`` (``parallel/plan.py`` ``apply_plan``). The stager
+    cuts the sequence over ``cp_s`` and the plan the heads over ``tp``
+    only, so any other ``seq_axis``, or head axes other than ``tp`` of size
+    > 1, raise.
     """
-    sharded = {a: ctx.axis_size(a) for a in head_axes if ctx.axis_size(a) > 1}
-    if sharded:
+    other = {a: ctx.axis_size(a) for a in head_axes
+             if a != AXIS_TP and ctx.axis_size(a) > 1}
+    if other:
         raise NotImplementedError(
-            f"ring attention over head axes {sharded} is not ported "
-            f"(ROADMAP A3.2)")
+            f"ring attention over head axes {other}: heads are cut over "
+            f"{AXIS_TP!r} only")
     if seq_axis != AXIS_CP_SHARD:
         raise NotImplementedError(
             f"ring attention over {seq_axis!r}: the batch is sequence-"

@@ -7,12 +7,27 @@ counterpart of the JAX package's ``jax.checkpoint`` per chunk: the backward
 recomputes a chunk's ``[C, V]`` logits instead of storing them, so the
 ``[N, V]`` logits (2.5 GB in fp32 at N = 4096, V = 151936) never live at
 once. Plain PyTorch: the JAX package leaves this op to XLA.
+
+Vocab-parallel (``group``): ``weight`` is this rank's rows of the table,
+from ``vocab_start`` on. Per chunk the rank takes its local logits; the
+row max and the sum of exps are reduced over the group, and the target
+logit is taken where the label falls in the rank's rows and summed over
+the group (one sum for both), so every rank holds every token's loss. The
+hidden state enters through ``copy_to_group`` (its gradient, each rank's
+part over its rows, summed over the group); each rank's table gradient is
+its own rows'. The table is never gathered.
 """
 
 import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from d9d_tpu_torch.core.collectives import (
+    all_reduce_max_,
+    copy_to_group,
+    reduce_from_group,
+)
 
 LM_IGNORE_INDEX = -100
 
@@ -32,9 +47,12 @@ def _chunk_loss(
     weight: torch.Tensor,
     logit_softcap: float | None,
     matmul_dtype: str,
+    vocab_start: int = 0,
+    group=None,
 ) -> torch.Tensor:
     """Per-token loss of one chunk: ``hidden [C, D]``, ``labels [C]``,
-    ``weight [V, D]`` → fp32 ``[C]``.
+    ``weight [V, D]`` (the rank's ``V`` rows from ``vocab_start`` on, under
+    ``group``) → fp32 ``[C]``.
 
     Both operands are rounded to the matmul dtype and the product is taken
     in fp32, which is what the JAX package's ``preferred_element_type=
@@ -46,9 +64,21 @@ def _chunk_loss(
     logits = hidden.to(mm).float() @ weight.to(mm).float().T
     if logit_softcap is not None:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    safe = labels.clamp(0, logits.shape[-1] - 1).long()
-    correct = torch.gather(logits, 1, safe[:, None])[:, 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        safe = labels.clamp(0, logits.shape[-1] - 1).long()
+        correct = torch.gather(logits, 1, safe[:, None])[:, 0]
+    else:
+        top = all_reduce_max_(logits.detach().amax(dim=-1), group)
+        local = labels.long() - vocab_start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        picked = torch.gather(logits, 1,
+                              torch.where(inside, local, 0)[:, None])[:, 0]
+        sums = reduce_from_group(torch.stack([
+            torch.exp(logits - top[:, None]).sum(dim=-1),
+            torch.where(inside, picked, 0.0)]), group)
+        lse = top + torch.log(sums[0])
+        correct = sums[1]
     loss = lse - correct
     return torch.where(labels == LM_IGNORE_INDEX, torch.zeros_like(loss), loss)
 
@@ -71,9 +101,14 @@ def linear_cross_entropy(
     chunk_size: "int | str" = "auto",
     logit_softcap: float | None = None,
     matmul_dtype: str | None = None,
+    vocab_start: int = 0,
+    group=None,
 ) -> torch.Tensor:
     """Per-token CE of ``hidden [N, D] @ weight [V, D].T`` against ``labels
     [N]`` → fp32 ``[N]``; tokens labelled ``-100`` contribute zero loss.
+    With ``group``, ``weight`` is this rank's rows of a vocab-parallel
+    table, from ``vocab_start`` on (see the module docstring); the chunk
+    size follows the rank's rows.
 
     ``matmul_dtype`` (``"bf16"`` / ``"fp32"``) defaults to ``"bf16"`` for
     bf16 ``hidden`` and ``"fp32"`` otherwise, as in the JAX package.
@@ -85,12 +120,14 @@ def linear_cross_entropy(
         raise ValueError(f"matmul_dtype must be 'bf16' or 'fp32', got "
                          f"{matmul_dtype!r}")
     n, d = hidden.shape
+    hidden = copy_to_group(hidden, group)
     chunk = resolve_chunk_size(n, weight.shape[0], chunk_size)
-    if n <= chunk:
-        return _chunk_loss(hidden, labels, weight, logit_softcap, matmul_dtype)
-
     body = functools.partial(
-        _chunk_loss, logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+        _chunk_loss, logit_softcap=logit_softcap, matmul_dtype=matmul_dtype,
+        vocab_start=vocab_start, group=group)
+    if n <= chunk:
+        return body(hidden, labels, weight)
+
     pad = (-n) % chunk
     if pad:
         hidden = torch.cat([hidden, hidden.new_zeros((pad, d))])

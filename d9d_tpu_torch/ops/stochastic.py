@@ -16,7 +16,9 @@ passes where it lies there (:func:`shard_index`), so a sharded optimizer
 step rounds every element with the bits the unsharded step gives it. A
 piece cut on dim 0 is one run of the whole tensor's flat index
 (``index_offset``); a piece cut on a later dim is one run per row, of
-``cols`` elements each, the rows ``row_stride`` apart.
+``cols`` elements each, the rows ``row_stride`` apart; a block (dim 0 cut
+by tensor parallelism, dim 1 by FSDP) is the same runs from its first
+row on.
 
 The bits are not the TPU's: a ``jax.random`` key stream and the
 TPU's on-chip PRNG cannot be reproduced here, so against the JAX package the
@@ -73,20 +75,26 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 def shard_index(shape, bounds) -> tuple[int, int, int]:
     """``(index_offset, cols, row_stride)`` of a piece of a tensor of the
     whole ``shape``, cut to ``bounds`` (``[(dim, start, length)]`` as
-    ``parallel/shards.py`` ``shard_bounds`` gives them, at most one dim):
-    viewed as ``[prod(shape[:dim]), ...]`` rows, the piece holds ``cols``
-    elements of each row from ``index_offset`` on, rows ``row_stride``
-    apart. ``(0, n, n)`` for a whole tensor of ``n`` elements."""
+    ``parallel/shards.py`` ``shard_bounds`` gives them: one dim, or dim 0
+    and one later dim, a block): viewed as ``[prod(shape[:dim]), ...]``
+    rows, the piece holds ``cols`` elements of each row from
+    ``index_offset`` on, rows ``row_stride`` apart. A block cut to rows
+    ``[r0, r0 + nr)`` of dim 0 starts ``r0 * prod(shape[1:])`` further on.
+    ``(0, n, n)`` for a whole tensor of ``n`` elements."""
     if not bounds:
         n = math.prod(shape)
         return 0, max(n, 1), max(n, 1)
-    if len(bounds) > 1:
-        raise ValueError(f"a piece cut on more than one dim: {bounds}")
-    (dim, start, length), = bounds
+    if len(bounds) > 2 or (len(bounds) == 2 and bounds[0][0] != 0):
+        raise ValueError(f"a piece cut on dims other than dim 0 and one "
+                         f"later dim: {bounds}")
+    *outer, (dim, start, length) = bounds
     inner = math.prod(shape[dim + 1:])
     cols = max(length * inner, 1)
     row_stride = cols if dim == 0 else max(shape[dim] * inner, cols)
-    return start * inner, cols, row_stride
+    offset = start * inner
+    for _, row0, _ in outer:
+        offset += row0 * math.prod(shape[1:])
+    return offset, cols, row_stride
 
 
 def _global_index(n, index_offset, cols, row_stride, device):

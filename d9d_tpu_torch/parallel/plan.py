@@ -1,24 +1,38 @@
 """Parallelism plans: logical-axis → mesh-axis rule tables (counterpart of
 ``d9d_tpu/parallel/plan.py``), and their application to a module through
-FSDP2's ``fully_shard``.
+DTensor's tensor-parallel styles and FSDP2's ``fully_shard``.
 
 The rule tables are the JAX package's: ``replicate_plan`` maps nothing;
 ``fsdp_plan`` shards every parameter's ``embed`` dim, and the two vocab
 tables on their ``vocab`` dim, over the fused ``dp_s x cp_s`` axes;
 ``hsdp_plan`` is the same table, ``dp_r`` replicating because no rule
-names it. Tensor and expert parallelism (``with_tp``, ``tp_plan``,
-``fsdp_ep_plan``) raise.
+names it; ``tp_plan`` maps ``heads``, ``kv_heads``, ``mlp`` and ``vocab``
+to ``tp``, and ``with_tp=True`` adds those rules to the fsdp tables, the
+vocab tables then cut over ``(tp, dp_s, cp_s)``, tp major. Expert
+parallelism (``fsdp_ep_plan``) raises.
 
-:func:`apply_plan` turns a table into ``fully_shard`` calls: one on each
-decoder layer (``layers.<i>``) and one on the root, over the ``fsdp_axes``
-sub-mesh, or a 2-D ``(dp_r, dp_s x cp_s)`` mesh when ``dp_r > 1`` (HSDP).
-Each parameter is sharded on the dim its rule maps to the fsdp axes
-(``shard_placement_fn``); a parameter with no such dim (a norm weight, the
-attention sinks) is left out of FSDP (``ignored_params``) and stays whole
-on every rank, as the JAX plan replicates it, so the train step sums its
-gradient itself. Gradients are SUMMED over the shard and replicate dims
-(divide factor 1, sum reductions), not averaged: the train step scales by
-the global loss weight (``loop/train_step.py``). They are reduced in fp32
+:func:`apply_plan` does explicitly what GSPMD does with the JAX tables:
+
+1. tensor parallelism over the ``tp`` sub-mesh, from each parameter's
+   logical axes (``nn/logical_axes.py`` ``param_layouts``): a projection
+   whose output dim maps to ``tp`` (q, k, v, gate, up) goes
+   ``ColwiseParallel``, one whose input dim does (o, down)
+   ``RowwiseParallel`` (``parallelize_module``); any other parameter with
+   a dim over ``tp`` (the vocab tables, the attention sinks) becomes a
+   ``DTensor`` cut on that dim, and its module computes on its local rows
+   (``core/collectives.py``). ``fused_qkv`` attention raises, as in JAX;
+2. FSDP2: ``fully_shard`` on each decoder layer (``layers.<i>``) and on
+   the root, over the ``fsdp_axes`` sub-mesh, or a 2-D ``(dp_r, dp_s x
+   cp_s)`` mesh when ``dp_r > 1`` (HSDP). Each parameter is sharded on the
+   dim its rule maps to the fsdp axes (``shard_placement_fn``): a
+   tp-cut projection on its other dim (a block), a vocab table on the dim
+   tp cut (FSDP2's ``_StridedShard``: tp outer, fsdp inner). A parameter
+   with no such dim (a norm weight, the sinks) is left out of FSDP
+   (``ignored_params``) and the train step sums its gradient itself.
+
+Gradients are SUMMED over the shard and replicate dims (divide factor 1,
+sum reductions), not averaged: the train step scales by the global loss
+weight (``loop/train_step.py``). They are reduced in fp32
 (``reduce_dtype``), so narrower parameters accumulate microbatches in fp32
 as the one-process step does; FSDP casts its copy of the reduced gradient
 back to the parameter's dtype, and :class:`ReducedGradients` keeps the fp32
@@ -47,32 +61,37 @@ class ParallelPlan:
     rules: LogicalRules
 
     def mesh_axes(self, axes: la.Axes) -> tuple:
-        """The mesh axes each logical axis maps to (``None``: whole)."""
+        """The mesh axes each logical axis maps to, as a tuple (``()``:
+        whole)."""
         table = dict(self.rules)
-        return tuple(table.get(a) if a is not None else None for a in axes)
+        return tuple(_as_axes(table.get(a) if a is not None else None)
+                     for a in axes)
+
+
+def _as_axes(m) -> tuple[str, ...]:
+    return (m,) if isinstance(m, str) else tuple(m or ())
 
 
 def replicate_plan(ctx: MeshContext) -> ParallelPlan:
     return ParallelPlan(name="replicate", rules=())
 
 
-def _refuse_tp(with_tp: bool) -> None:
-    if with_tp:
-        raise NotImplementedError(
-            "tensor parallelism is not ported yet (ROADMAP A3.2)")
-
-
 def fsdp_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
-    """Shard every parameter's embed dim over the fused dp_s×cp_s axes."""
-    _refuse_tp(with_tp)
-    rules = [(la.EMBED, ctx.fsdp_axes)] + _vocab_table_rules(ctx)
+    """Shard every parameter's embed dim over the fused dp_s×cp_s axes
+    (and, ``with_tp``, the tp rules besides)."""
+    rules = [(la.EMBED, ctx.fsdp_axes)]
+    if with_tp:
+        rules += _tp_rules()
+    rules += _vocab_table_rules(ctx, with_tp=with_tp)
     return ParallelPlan(name="fsdp", rules=tuple(rules))
 
 
-def _vocab_table_rules(ctx: MeshContext) -> list:
-    """Vocab-range tables (embedding + LM head) shard on their vocab dim;
-    their feature dim stays whole."""
-    return [(la.VOCAB, ctx.fsdp_axes), (la.VOCAB_FEATURES, None)]
+def _vocab_table_rules(ctx: MeshContext, *, with_tp: bool) -> list:
+    """Vocab-range tables (embedding + LM head) shard on their vocab dim
+    (fused with tp, tp major, when active); their feature dim stays
+    whole."""
+    vocab_axes = (AXIS_TP,) + ctx.fsdp_axes if with_tp else ctx.fsdp_axes
+    return [(la.VOCAB, vocab_axes), (la.VOCAB_FEATURES, None)]
 
 
 def hsdp_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
@@ -80,10 +99,13 @@ def hsdp_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
     return dataclasses.replace(fsdp_plan(ctx, with_tp=with_tp), name="hsdp")
 
 
+def _tp_rules() -> list:
+    return [(la.HEADS, AXIS_TP), (la.KV_HEADS, AXIS_TP), (la.MLP, AXIS_TP),
+            (la.VOCAB, AXIS_TP)]
+
+
 def tp_plan(ctx: MeshContext) -> ParallelPlan:
-    raise NotImplementedError(
-        f"tp_plan: tensor parallelism over {AXIS_TP!r} is not ported yet "
-        f"(ROADMAP A3.2)")
+    return ParallelPlan(name="tp", rules=tuple(_tp_rules()))
 
 
 def fsdp_ep_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
@@ -91,46 +113,114 @@ def fsdp_ep_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
         "fsdp_ep_plan: expert parallelism is not ported yet (ROADMAP A3.3)")
 
 
-def shard_dims(module: nn.Module, ctx: MeshContext,
-               plan: ParallelPlan) -> dict[str, "int | None"]:
-    """Each parameter's dim sharded over ``ctx.fsdp_axes`` under ``plan``
-    (``None``: whole on every rank). A rule mapping to other mesh axes,
-    or two dims of one parameter sharded, raises."""
+def _cut_dims(module: nn.Module, ctx: MeshContext, plan: ParallelPlan,
+              tp: bool) -> dict[str, "int | None"]:
+    """Each parameter's dim mapped to ``tp`` (``tp``) or to the fsdp axes
+    (not ``tp``) under ``plan``; ``None``: none. A dim mapped to other mesh
+    axes, or to tp after the fsdp axes, raises, as do two dims of one
+    parameter mapped to the same axes."""
+    fsdp = tuple(ctx.fsdp_axes)
     out = {}
     for name, layout in la.param_layouts(module).items():
-        mapped = plan.mesh_axes(layout.axes)
-        dims = [d for d, m in enumerate(mapped) if m]
-        for d in dims:
-            if tuple(mapped[d]) != tuple(ctx.fsdp_axes):
+        dims = []
+        for d, axes in enumerate(plan.mesh_axes(layout.axes)):
+            rest = tuple(a for a in axes if a != AXIS_TP)
+            if rest not in ((), fsdp) or AXIS_TP in axes[1:]:
                 raise NotImplementedError(
-                    f"{name}: dim {d} maps to {mapped[d]}; only the fsdp "
-                    f"axes {ctx.fsdp_axes} are ported (ROADMAP A3.2)")
+                    f"{name}: dim {d} maps to {axes}; only tp and the fsdp "
+                    f"axes {fsdp}, tp major, are ported (expert axes: "
+                    f"ROADMAP A3.3)")
+            if (AXIS_TP in axes) if tp else bool(rest):
+                dims.append(d)
         if len(dims) > 1:
             raise NotImplementedError(
-                f"{name}: dims {dims} all map to the fsdp axes")
+                f"{name}: dims {dims} map to the same mesh axes")
         out[name] = dims[0] if dims else None
     return out
 
 
+def shard_dims(module: nn.Module, ctx: MeshContext,
+               plan: ParallelPlan) -> dict[str, "int | None"]:
+    """Each parameter's dim sharded over ``ctx.fsdp_axes`` under ``plan``
+    (``None``: whole over them)."""
+    return _cut_dims(module, ctx, plan, tp=False)
+
+
+def tp_dims(module: nn.Module, ctx: MeshContext,
+            plan: ParallelPlan) -> dict[str, "int | None"]:
+    """Each parameter's dim cut over ``tp`` under ``plan`` (``None``:
+    whole over it)."""
+    return _cut_dims(module, ctx, plan, tp=True)
+
+
 def plan_shards(ctx: MeshContext, plan: ParallelPlan) -> bool:
-    """Does ``plan`` shard parameters over more than one rank on ``ctx``
-    (a rule table that maps anything, and fsdp axes larger than 1)?"""
-    return ctx.axis_size(*ctx.fsdp_axes) > 1 and any(
-        m for _, m in plan.rules)
+    """Does ``plan`` cut parameters over more than one rank on ``ctx``
+    (a rule mapping to mesh axes larger than 1)?"""
+    return any(ctx.axis_size(*_as_axes(m)) > 1 for _, m in plan.rules)
+
+
+def _apply_tp(module: nn.Module, ctx: MeshContext,
+              dims: dict[str, int]) -> None:
+    """Step 1 of :func:`apply_plan` for the parameters ``dims`` cuts."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+        parallelize_module,
+    )
+
+    tp = ctx.tp_size
+    for name, m in module.named_modules():
+        if getattr(m, "fused_qkv", False):
+            raise ValueError(
+                "fused_qkv=True under a tp>1 mesh would reshard the q/k/v "
+                "kernels every step; use fused_qkv=False with tensor "
+                "parallelism")
+        heads = (getattr(m, "num_heads", 0), getattr(m, "num_kv_heads", 0))
+        if heads[0] % tp or heads[1] % tp:
+            raise ValueError(
+                f"{name}: heads (q={heads[0]}, kv={heads[1]}) not divisible "
+                f"by the head axes ({AXIS_TP!r},) size {tp}")
+    mesh = ctx.tp_mesh
+    styles = {}
+    for name, dim in dims.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(mod_name)
+        if isinstance(mod, nn.Linear) and leaf == "weight":
+            style = ColwiseParallel() if dim == 0 else RowwiseParallel()
+            # every rank holds the same values (or none yet, on the meta
+            # device): each keeps its chunk, nothing is scattered
+            style.src_data_rank = None
+            styles[mod_name] = style
+        else:
+            p = getattr(mod, leaf)
+            mod.register_parameter(leaf, nn.Parameter(
+                distribute_tensor(p.detach(), mesh, [Shard(dim)],
+                                  src_data_rank=None),
+                requires_grad=p.requires_grad))
+    parallelize_module(module, mesh, styles)
 
 
 def apply_plan(module: nn.Module, ctx: MeshContext,
                plan: ParallelPlan) -> nn.Module:
-    """Shard ``module``'s parameters as ``plan`` says (see the module
-    docstring); a plan that shards nothing on ``ctx`` wraps nothing and
+    """Cut ``module``'s parameters as ``plan`` says (see the module
+    docstring); a plan that cuts nothing on ``ctx`` wraps nothing and
     returns the module as it is. Works on a module on the meta device (the
     sharded init) as on one with values."""
-    if not plan_shards(ctx, plan):
+    tp = {}
+    if ctx.tp_size > 1:
+        tp = {n: d for n, d in tp_dims(module, ctx, plan).items()
+              if d is not None}
+    dims = shard_dims(module, ctx, plan)
+    fsdp = (ctx.axis_size(*ctx.fsdp_axes) > 1
+            and any(d is not None for d in dims.values()))
+    if tp:
+        _apply_tp(module, ctx, tp)
+    if not fsdp:
         return module
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
-    dims = shard_dims(module, ctx, plan)
     by_param = {p: dims[n] for n, p in module.named_parameters()}
     ignored = {p for p, d in by_param.items() if d is None}
     mesh = ctx.submesh(*ctx.fsdp_axes)
@@ -156,6 +246,15 @@ def fsdp_modules(module: nn.Module) -> list[nn.Module]:
     from torch.distributed.fsdp import FSDPModule
 
     return [m for m in module.modules() if isinstance(m, FSDPModule)]
+
+
+def fsdp_params(module: nn.Module) -> list[nn.Parameter]:
+    """The parameters of ``module`` that ``fully_shard`` manages (FSDP
+    reduces their gradients)."""
+    from torch.distributed.fsdp import fully_shard
+
+    return [fp.sharded_param for m in fsdp_modules(module)
+            for fp in fully_shard.state(m)._fsdp_param_group.fsdp_params]
 
 
 class ReducedGradients:
@@ -201,5 +300,6 @@ class ReducedGradients:
 
 
 __all__ = ["LogicalRules", "ParallelPlan", "ReducedGradients", "apply_plan",
-           "fsdp_ep_plan", "fsdp_modules", "fsdp_plan", "hsdp_plan",
-           "plan_shards", "replicate_plan", "shard_dims", "tp_plan"]
+           "fsdp_ep_plan", "fsdp_modules", "fsdp_params", "fsdp_plan",
+           "hsdp_plan", "plan_shards", "replicate_plan", "shard_dims",
+           "tp_dims", "tp_plan"]

@@ -1,17 +1,27 @@
-"""This rank's piece of a parameter that ``fully_shard`` turned into a
-``DTensor``.
+"""This rank's piece of a parameter that a plan turned into a ``DTensor``
+(``parallel/plan.py``: tensor parallelism, ``fully_shard``, or both).
 
-FSDP2 cuts a parameter's shard dim as ``torch.chunk`` does over each mesh
-dim that shards it (chunks of ``ceil(n / size)``, the last ones shorter or
-empty) and keeps the rest whole; a mesh dim that replicates it (HSDP's
-``dp_r``) leaves it whole. These helpers name that piece, so that code
+Each cut is ``torch.chunk``'s over the mesh dim that makes it (chunks of
+``ceil(n / size)``, the last ones shorter or empty); a mesh dim that
+replicates the parameter (HSDP's ``dp_r``) leaves it whole. Cuts of one
+dim nest: the ``Shard`` placements in mesh-dim order, outer first, then
+the ``_StridedShard`` ones, which FSDP2 gives a dim that tensor
+parallelism cut before it (the vocab tables under ``fsdp_plan(with_tp=
+True)``: tp is the outer cut, the fsdp axes the inner one, as in the JAX
+plan's ``(tp, dp_s, cp_s)``). These helpers name that piece, so that code
 which writes a parameter from its whole value (the sharded init, the JAX
 weights' loader) writes only the piece, and code that steps on it (the
 optimizers) takes the local tensor. A plain tensor is its own piece.
+
+In a forward, a parameter that tensor parallelism cut is a ``DTensor``
+over the 1-D ``tp`` mesh (FSDP has gathered its own cut):
+:func:`model_group` names that mesh's group, :func:`vocab_slice` the rows
+a vocab-parallel table holds.
 """
 
 import torch
 from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 
 def is_sharded(t: torch.Tensor) -> bool:
@@ -26,19 +36,28 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def shard_cuts(t: torch.Tensor) -> list[tuple[int, int]]:
+    """``(tensor dim, mesh dim)`` of each cut of ``t``, outer cuts first
+    (empty for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return []
+    plain, strided = [], []
+    for mesh_dim, placement in enumerate(t.placements):
+        if isinstance(placement, _StridedShard):
+            strided.append((placement.dim, mesh_dim))
+        elif isinstance(placement, Shard):
+            plain.append((placement.dim, mesh_dim))
+    return plain + strided
+
+
 def shard_bounds(t: torch.Tensor) -> list[tuple[int, int, int]]:
     """``(dim, start, length)`` of this rank's piece along each sharded dim
     of ``t``, in the whole tensor's coordinates (empty for a whole
     tensor)."""
-    if not isinstance(t, DTensor):
-        return []
     bounds = {}
-    mesh = t.device_mesh
-    for mesh_dim, placement in enumerate(t.placements):
-        if not isinstance(placement, Shard):
-            continue
-        d = placement.dim
+    for d, mesh_dim in shard_cuts(t):
         lo, n = bounds.get(d, (0, t.shape[d]))
+        mesh = t.device_mesh
         size, r = mesh.size(mesh_dim), mesh.get_local_rank(mesh_dim)
         chunk = -(-n // size)
         start = min(r * chunk, n)
@@ -61,5 +80,30 @@ def write_whole_(param: torch.Tensor, whole: torch.Tensor) -> None:
         local_tensor(param).copy_(local_piece(whole, param))
 
 
-__all__ = ["is_sharded", "local_piece", "local_tensor", "shard_bounds",
-           "write_whole_"]
+def vocab_slice(weight: torch.Tensor):
+    """``(local rows, first row, group)`` of a vocab table in a forward:
+    for a ``DTensor`` that tensor parallelism cut on dim 0 over a 1-D mesh,
+    this rank's rows (differentiable: their gradient is the table's piece),
+    their first index in the whole table and the mesh's group; for any
+    other tensor ``(weight, 0, None)``."""
+    if not isinstance(weight, DTensor):
+        return weight, 0, None
+    mesh = weight.device_mesh
+    bounds = shard_bounds(weight)
+    if mesh.ndim != 1 or [b[0] for b in bounds] != [0]:
+        raise ValueError(
+            f"a vocab table in a forward must be cut on its vocab dim over "
+            f"one mesh dim, got {weight.placements} over {mesh}")
+    return weight.to_local(), bounds[0][1], mesh.get_group(0)
+
+
+def model_group(weight: torch.Tensor):
+    """The group of the 1-D mesh a parameter in a forward is cut over
+    (``None`` for a plain tensor: no tensor parallelism)."""
+    if not isinstance(weight, DTensor):
+        return None
+    return weight.device_mesh.get_group(0)
+
+
+__all__ = ["is_sharded", "local_piece", "local_tensor", "model_group",
+           "shard_bounds", "shard_cuts", "vocab_slice", "write_whole_"]

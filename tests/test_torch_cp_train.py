@@ -51,7 +51,7 @@ from d9d_tpu_torch.model_state.from_jax import load_jax_params
 from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
 from d9d_tpu_torch.nn.sdpa import SdpaFlashConfig
 from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
-from test_torch_ring import spawn
+from test_torch_ring import scoped_jax_mesh, spawn  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -305,31 +305,36 @@ def test_cp_trainer_matches_jax_cp_trainer_and_one_process(tmp_path):
 
 
 def test_cp_mesh_refusals():
-    for kw in (dict(cp_shard=2), dict(dp_replicate=2, cp_shard=2)):
+    for kw in (dict(cp_shard=2), dict(dp_replicate=2, cp_shard=2),
+               dict(cp_replicate=2), dict(cp_shard=2, tp=2)):
         with pytest.raises(RuntimeError, match="needs a process group"):
             MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
-    for kw, item in ((dict(cp_replicate=2), "A3.2"),
-                     (dict(cp_shard=2, tp=2), "A3.2"),
-                     (dict(cp_shard=2, pp=2), "A8"),
+    for kw, item in ((dict(cp_shard=2, pp=2), "A8"),
                      (dict(cp_shard=2, ep_shard=2), "A3.3")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
-    # the ring over head axes (tensor parallelism) is still to port
+    # the ring runs on each rank's head slice; heads that tp does not
+    # divide raise JAX's divisibility error where the plan cuts them
     from d9d_tpu_torch.core.mesh import MeshContext
+    from d9d_tpu_torch.nn.sdpa import SdpaRingConfig
     from d9d_tpu_torch.ops.attention.ring import make_ring_sdpa
+    from d9d_tpu_torch.parallel import apply_plan, fsdp_plan
 
-    tp_ctx = MeshContext(params=MeshParameters(cp_shard=2, tp=2),
+    tp_ctx = MeshContext(params=MeshParameters(cp_shard=2, tp=4),
                          device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3.2"):
-        make_ring_sdpa(tp_ctx, head_axes=("tp",))
+    ring = build_sdpa_backend(SdpaRingConfig(), ctx=tp_ctx)
+    assert make_ring_sdpa(tp_ctx, head_axes=("tp",)).group is None
+    model = Qwen3DenseCausalLM(Qwen3DenseConfig(**MODEL), ring,
+                               device="meta")
+    with pytest.raises(ValueError, match=r"heads \(q=4, kv=2\) not divisible "
+                                         r"by the head axes \('tp',\) size 4"):
+        apply_plan(model, tp_ctx, fsdp_plan(tp_ctx, with_tp=True))
     with pytest.raises(ValueError, match="not divisible"):
         from d9d_tpu_torch.loop.components.batch_staging import (
             check_cp_seq_len,
         )
         check_cp_seq_len(33, 2)
     with pytest.raises(ValueError, match="needs the mesh"):
-        from d9d_tpu_torch.nn.sdpa import SdpaRingConfig
-
         build_sdpa_backend(SdpaRingConfig())
 
 

@@ -74,7 +74,7 @@ from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
 from d9d_tpu_torch.nn.logical_axes import param_layouts
 from d9d_tpu_torch.nn.sdpa import SdpaFlashConfig
 from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
-from test_torch_ring import spawn
+from test_torch_ring import scoped_jax_mesh, spawn  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -6,16 +6,18 @@ processes are ``tests/test_torch_dp_train.py``):
   annotations (reversed for the transposed flax kernels), so the plans'
   rule tables pick the same dims on both sides;
 - the mesh's axis groups and ``as_dict``/``from_dict`` are the JAX
-  context's; the plans still to port raise naming their ROADMAP item;
+  context's; ``tp_plan`` and ``with_tp=True`` carry the JAX tables and cut
+  the dims JAX's tables map to tp and to the fsdp axes; the plan still to
+  port (``fsdp_ep_plan``) raises naming its ROADMAP item;
 - ``BatchMaths`` and ``stage_microbatches`` cut the rows and positions that
   JAX's ``batch_sharding`` places on the device at the same mesh
   coordinate;
 - the meta-device build materialized by ``reset_parameters`` equals the
   one-process build bit for bit (the draw order of the sharded init; the
   sharded pieces themselves are checked in the gloo runs);
-- B10's plain version at an index offset: any row range, and any column
-  range, of a ``[R, C]`` tensor rounds to the same bits as those rows or
-  columns of the whole tensor's rounding;
+- B10's plain version at an index offset: any row range, any column
+  range, and any block of both, of a ``[R, C]`` tensor rounds to the same
+  bits as those elements of the whole tensor's rounding;
 - ``set_seeds`` shifts Python's and numpy's seeds by ``pp_rank`` as the JAX
   function does;
 - the host collectives return their input without a process group.
@@ -66,6 +68,7 @@ from d9d_tpu_torch.parallel import (
     tp_plan,
 )
 from d9d_tpu_torch.parallel.plan import shard_dims
+from test_torch_ring import scoped_jax_mesh  # noqa: F401 (autouse)
 
 CFG = dict(vocab_ranges=(("text", 40), ("special", 8)), hidden_size=32,
            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8,
@@ -159,12 +162,49 @@ def test_mesh_vocabulary_matches_jax():
 def test_unported_plans_raise():
     ctx = MeshContext(params=MeshParameters(dp_shard=2),
                       device=torch.device("cpu"))
-    for call, item in ((lambda: tp_plan(ctx), "A3.2"),
-                       (lambda: fsdp_plan(ctx, with_tp=True), "A3.2"),
-                       (lambda: hsdp_plan(ctx, with_tp=True), "A3.2"),
-                       (lambda: fsdp_ep_plan(ctx), "A3.3")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP A3.3"):
+        fsdp_ep_plan(ctx)
+
+
+@pytest.mark.parametrize("mesh", [dict(tp=2), dict(dp_shard=2, tp=2),
+                                  dict(dp_replicate=2, cp_shard=2, tp=2)])
+def test_tp_plans_follow_the_jax_plan(jax_logical, mesh):
+    """``tp_plan`` and ``with_tp=True`` carry the JAX tables, and the dims
+    each port parameter is cut on over tp and over the fsdp axes are the
+    dims JAX's table maps to them (after the transpose)."""
+    from d9d_tpu.parallel import hsdp_plan as j_hsdp_plan
+    from d9d_tpu.parallel import tp_plan as j_tp_plan
+    from d9d_tpu_torch.parallel.plan import tp_dims
+
+    jctx = JMeshParameters(**mesh).build(
+        jax.devices()[:JMeshParameters(**mesh).world_size])
+    ctx = MeshContext(params=MeshParameters(**mesh), device=torch.device("cpu"))
+    model = _port_model()
+    layouts = param_layouts(model)
+    for port, ref in ((tp_plan(ctx), j_tp_plan(jctx)),
+                      (fsdp_plan(ctx, with_tp=True),
+                       j_fsdp_plan(jctx, with_tp=True)),
+                      (hsdp_plan(ctx, with_tp=True),
+                       j_hsdp_plan(jctx, with_tp=True))):
+        rules = dict(ref.rules)
+        assert (port.name, port.rules) == (ref.name, ref.rules)
+        cuts = {"tp": tp_dims(model, ctx, port),
+                "fsdp": shard_dims(model, ctx, port)}
+        for name, keys in jax_param_map(model, jax_logical).items():
+            spec = [rules.get(a) if a is not None else None
+                    for a in jax_logical[keys[0]]]
+            if layouts[name].transposed:
+                spec = spec[::-1]
+            axes = [(m,) if isinstance(m, str) else tuple(m or ())
+                    for m in spec]
+            want_tp = [d for d, a in enumerate(axes) if "tp" in a]
+            want_fsdp = [d for d, a in enumerate(axes)
+                         if set(a) - {"tp"}]
+            assert cuts["tp"][name] == (want_tp or [None])[0], (port, name)
+            assert cuts["fsdp"][name] == (want_fsdp or [None])[0], (port,
+                                                                    name)
+        # the vocab tables: tp major, then the fsdp axes, on one dim
+        assert dict(port.rules)["vocab"] in ("tp", ("tp",) + ctx.fsdp_axes)
 
 
 def test_batch_cut_matches_jax_batch_sharding():
@@ -249,6 +289,32 @@ def test_stochastic_round_pieces_match_the_whole(shape):
         torch.int16), whole[1:])
     with pytest.raises(ValueError, match="do not place"):
         stochastic_round_to_bf16(x, seed, cols=x.numel() + 1)
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (7, 9), (3, 5, 12)])
+def test_stochastic_round_blocks_match_the_whole(shape):
+    """B10's plain version on a block (rows of dim 0 cut by tensor
+    parallelism, a range of a later dim cut by FSDP) at ``shard_index``'s
+    offsets: the bits of the same elements of the whole tensor's
+    rounding. A cut on two dims past dim 0 raises."""
+    gen = torch.Generator().manual_seed(sum(shape) + 1)
+    x = torch.randn(shape, generator=gen) * 3.0
+    seed = 0x0FED_CBA9_8765_4321
+    whole = stochastic_round_to_bf16(x, seed).view(torch.int16)
+    for dim in range(1, len(shape)):
+        for r0, r1 in ((0, 1), (1, shape[0]), (shape[0] // 2, shape[0])):
+            for c0, c1 in ((0, shape[dim] // 2), (1, shape[dim] - 1)):
+                bounds = [(0, r0, r1 - r0), (dim, c0, c1 - c0)]
+                piece = x[r0:r1].narrow(dim, c0, c1 - c0).contiguous()
+                offset, cols, row_stride = shard_index(shape, bounds)
+                got = stochastic_round_to_bf16(
+                    piece, seed, index_offset=offset, cols=cols,
+                    row_stride=row_stride).view(torch.int16)
+                want = whole[r0:r1].narrow(dim, c0, c1 - c0)
+                assert torch.equal(got, want), bounds
+    if len(shape) == 3:
+        with pytest.raises(ValueError, match="dims other than dim 0"):
+            shard_index(shape, [(1, 0, 2), (2, 0, 6)])
 
 
 def test_set_seeds_shifts_by_pipeline_stage():

@@ -110,6 +110,16 @@ shutdown_distributed()
 '''
 
 
+@pytest.fixture(scope="module", autouse=True)
+def scoped_jax_mesh():
+    """A JAX context sets its mesh process-wide (``jax.set_mesh``); this
+    scope puts the process's ambient mesh back when the module is done, so
+    a later test file in the same process does not inherit it. The files
+    that build multi-device JAX contexts import it."""
+    with jax.set_mesh(jax.sharding.Mesh(np.array(jax.devices()[:1]), ("x",))):
+        yield
+
+
 def spawn(tmp_path, source, world, *args, timeout=SPAWN_TIMEOUT_S):
     """Start ``source`` in ``world`` processes (rank, world, rendezvous,
     *args); the returned function waits for them: every rank must exit 0

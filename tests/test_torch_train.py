@@ -357,12 +357,22 @@ def test_unported_options_raise():
     assert isinstance(build_optimizer(AdamWConfig(), [], 1e-3), AdamW)
     # the mesh axes still to port raise before any process group is asked
     # for, each naming its ROADMAP item
-    for kw, item in ((dict(pp=2), "A8"), (dict(tp=2), "A3.2"),
-                     (dict(cp_replicate=2), "A3.2"),
+    for kw, item in ((dict(pp=2), "A8"),
                      (dict(dp_shard=2, ep_shard=2), "A3.3")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             MeshParameters(**kw).build(
                 ["cpu"] * MeshParameters(**kw).world_size)
+    # fused_qkv under tp > 1 raises JAX's error where the plan cuts heads
+    from d9d_tpu_torch.core.mesh import MeshContext
+    from d9d_tpu_torch.parallel import apply_plan, tp_plan
+
+    tp_ctx = MeshContext(params=MeshParameters(tp=2),
+                         device=torch.device("cpu"))
+    fused = Qwen3DenseCausalLM(
+        dataclasses.replace(Qwen3DenseConfig.tiny(), fused_qkv=True),
+        device="meta")
+    with pytest.raises(ValueError, match="fused_qkv=True under a tp>1 mesh"):
+        apply_plan(fused, tp_ctx, tp_plan(tp_ctx))
     cfg = dataclasses.replace(Qwen3DenseConfig.tiny(), remat=True,
                               remat_policy="dots_no_batch")
     with pytest.raises(NotImplementedError, match="remat_policy"):
