@@ -58,7 +58,7 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
 5. full width, serving — Qwen3-8B (36 layers, random seeded bf16 weights):
    ``generate`` on a ragged batch with chunked prefill, then a
    ``ContinuousBatcher`` that drains 12 requests; then paged serving on the
-   same weights: 12 requests (prompts 16–512 tokens, 6 sharing a 256-token
+   same weights: 12 requests (prompts 16–384 tokens, 6 sharing a 256-token
    prefix) through the contiguous batcher and through
    ``ContinuousBatcher(page_size=16, prefix_cache=True)`` with bf16 and with
    int8 pools — tokens/s, prefix hits, pages in use, KV bytes per request,
@@ -66,7 +66,7 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    Qwen3-30B-A3B at full width and all 48 layers (random seeded bf16
    weights drawn on the card): ``generate`` on a ragged batch with chunked
    prefill once per expert-FFN kernel (aligned and gather tokens equal),
-   the same 12 requests through the contiguous and paged (bf16, int8)
+   12 shorter requests through the contiguous and paged (bf16, int8)
    batchers with the gather+combine kernel, and a profiled decode step;
 6. full width, training — Qwen3-8B widths at 8 of its 36 layers (fp32
    parameters, bf16 compute, full remat, AdamW): 6 ``Trainer.train`` steps
@@ -84,21 +84,34 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
 9. context parallelism — two child processes of this script
    (``--cp-worker``) share the card over gloo at ``cp_shard = 2``: one fp32
    step of Qwen3-8B widths at 1 layer through the ring against the same
-   step in this process through the flash backend, then 3
+   step in this process through the flash backend, then 2
    ``Trainer.train`` steps at 2 of 36 layers on 16384-token sequences
    (bf16 compute, fp32 parameters, full remat, AdamW); every attention goes
    through the ring and B4. Two ranks time-share one card: the phase shows
    correctness and times, not context-parallel scaling;
 10. data parallelism — two child processes (``--dp-worker``) share the card
    over gloo at ``dp_shard = 2`` under ``fsdp_plan`` (each rank initializes
-   and holds only its pieces of the parameters): 2 fp32 steps of Qwen3-8B
+   and holds only its pieces of the parameters): 1 fp32 step of Qwen3-8B
    widths at 1 layer and 2 steps with bf16
    parameters under ``StochasticAdamW`` (B10 on the pieces), each against
-   the same steps in this process on one device, then 2 ``Trainer.train``
-   steps at 2 of 36 layers (bf16 compute, fp32 parameters, full remat,
+   the same steps in this process on one device, then 1 ``Trainer.train``
+   step at 2 of 36 layers (bf16 compute, fp32 parameters, full remat,
    AdamW) under the host profiler: ms per step, peak memory per rank and
    the share of the step's host time in FSDP's collective regions. Like
-   phase 9 it shows correctness and times, not data-parallel scaling.
+   phase 9 it shows correctness and times, not data-parallel scaling;
+11. tensor parallelism — 2 and 4 child processes (``--tp-worker``) share
+   the card over gloo: ``tp 2``, ``dp_shard 2 x tp 2`` (fp32 and bf16
+   parameters) and ``cp_shard 2 x tp 2`` against the one-process trainer,
+   then ``tp 2`` at 2 layers under the host profiler;
+12. expert parallelism — two child processes (``--ep-worker``) share the
+   card over gloo under ``fsdp_ep_plan``, Qwen3-30B-A3B widths: each first
+   runs the one-process trainer (1 layer, fp32, 2 rows of 2048 tokens, 2
+   steps) and holds ``dp_shard 2, ep_shard 2`` and ``tp 2, ep_shard 2``
+   (the tp ranks each dispatching half of the rows) to it, step by step
+   and parameter piece by piece; then ``dp_shard 2, ep_shard 2`` at 2 of
+   48 layers (bf16 compute, one row a rank): ms per step, the
+   all-to-alls' host ms and bytes, readbacks, dropped pairs, rows
+   received per layer call, B5 launches and peak memory per rank.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -2705,13 +2718,14 @@ PAGED_LATE = 5
 
 # the same shape of traffic with shorter prompts and budgets, for the MoE
 # model, whose decode step takes ~2.5x the dense one's: unrelated prompts of
-# at most 128 tokens, late shared tails of at most 64, 8 to 24 new tokens
-MOE_PAGED_TRAFFIC = dict(unrelated=(16, 128), late_tail=(16, 64),
-                         new=(8, 24))
+# at most 64 tokens, late shared tails of at most 32, 8 to 16 new tokens
+# (the dense and MoE traffic were cut to keep the script in its time)
+MOE_PAGED_TRAFFIC = dict(unrelated=(16, 64), late_tail=(16, 32),
+                         new=(8, 16))
 
 
-def paged_requests(vocab, seed=9, unrelated=(16, 512), late_tail=(16, 256),
-                   new=(16, 48)):
+def paged_requests(vocab, seed=9, unrelated=(16, 256), late_tail=(16, 128),
+                   new=(16, 32)):
     """``[(prompt, max_new_tokens)]`` in arrival order: the shared prefix's
     first request, 6 unrelated ones, then the 5 late shared ones. The
     ranges bound the unrelated prompts' lengths, the late shared prompts'
@@ -3888,7 +3902,7 @@ CP_RANKS = 2
 CP_CHILD_TIMEOUT_S = 900
 CP_LAYERS = 2        # of Qwen3-8B's 36
 CP_SEQ = 16384       # global tokens per step, T_loc = 8192 per rank
-CP_STEPS = 3
+CP_STEPS = 2         # cut from 3 to keep the script in its time
 CP_COMPARE_LAYERS = 1
 CP_COMPARE_SEQ = 4096
 CP_TRAIN_TOL = 1e-4  # ring vs flash backend, fp32: sums in other orders
@@ -4207,11 +4221,14 @@ DP_ROUNDED_TOL = 2.0 ** -8  # bf16 parameters: one bf16 ulp (_dp_tolerance)
 # step counts keep the phase near 110 s. The CPU tests hold the gradient
 # accumulation over microbatches (tests/test_torch_dp_train.py).
 DP_RUNS = {
-    "compare": dict(layers=1, seq=2048, steps=2, microbatches=1,
+    # one step (cut from 2 to keep the script in its time): phase 12 holds
+    # FSDP at dp_shard 2 for 2 fp32 steps, parameter pieces included
+    "compare": dict(layers=1, seq=2048, steps=1, microbatches=1,
                     dtype=torch.float32, param_dtype=torch.float32),
     "bf16_params": dict(layers=1, seq=2048, steps=2, microbatches=1,
                         dtype=torch.float32, param_dtype=torch.bfloat16),
-    "main": dict(layers=2, seq=4096, steps=2, microbatches=1,
+    # one step (cut from 2 to keep the script in its time)
+    "main": dict(layers=2, seq=4096, steps=1, microbatches=1,
                  dtype=torch.bfloat16, param_dtype=torch.float32),
 }
 # FSDP's collective regions on the host thread: all-gather issue and copy
@@ -4362,8 +4379,9 @@ def dp_worker(rank, world, rdzv, backend):
                             " (shared)" if backend == "gloo" else "")},
                  steps=[{"step": h["step"], "loss": h["loss"],
                          "grad_norm": h["grad_norm"]} for h in hist],
-                 ms_per_step=1e3 * statistics.median(walls[1:]),
-                 ms_per_step_is_of="the steps after the first",
+                 ms_per_step=1e3 * statistics.median(walls[1:] or walls),
+                 ms_per_step_is_of=("the steps after the first"
+                                    if walls[1:] else "the one step"),
                  ms_per_step_all=[1e3 * w for w in walls],
                  ms_per_step_is=(
                      "two ranks time-share one card; FSDP's collectives "
@@ -4808,6 +4826,370 @@ def phase_tp_train(backend="gloo", max_ranks=4,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: expert-parallel training on the card (fsdp_ep_plan: the
+# all-to-all dispatch, B5 on each rank's received rows at e_loc experts)
+#
+# Two ranks share the card over gloo, as phases 10 and 11's do: the
+# dispatch's all-to-alls and its count all-gather cross through pinned host
+# memory (gloo takes no CUDA tensor there), so a step's time says nothing
+# of EP throughput. Each rank first runs the one-process trainer on its
+# card (same seed, same batches) and keeps its final parameters; the EP
+# runs are held to it step by step and, at the end, piece by piece. On a
+# machine with N cards, ``python3 chip_smoke.py --ep-only nccl N`` runs
+# this phase alone with one card per rank over NCCL.
+
+EP_CHILD_TIMEOUT_S = 600
+EP_TRAIN_TOL = 1e-4  # fp32 compute: sums in other orders (rows, experts apart)
+# final parameters, |got - want| <= EP_PARAM_TOL * (1 + |want|): Adam's
+# normalized update carries the sums' order into every element (the CPU
+# tests' rtol = atol = 1e-3)
+EP_PARAM_TOL = 1e-3
+EP_SEQ = 2048
+# Qwen3-30B-A3B widths at ``layers`` of 48, ``rows`` rows of EP_SEQ tokens a
+# step (one microbatch), fp32 parameters, full remat, AdamW. (a) dp_shard N,
+# ep over dp_s; (b) dp_shard N/2 x tp 2, ep over (dp_s, tp): the tp ranks
+# each dispatch half of their block (dup = 2) — both fp32, held to the
+# one-process run (the same N rows); (c) the main run, one row a rank, bf16
+# compute, timed.
+EP_RUNS = {
+    "ep_compare": dict(tp=False, layers=1, steps=2, dtype=torch.float32),
+    "tp_ep_compare": dict(tp=True, layers=1, steps=2, dtype=torch.float32),
+    "main": dict(tp=False, layers=2, steps=2, dtype=torch.bfloat16),
+}
+
+
+def _ep_mesh(world, tp):
+    if tp:
+        return dict(dp_shard=world // 2, tp=2, ep_shard=world)
+    return dict(dp_shard=world, ep_shard=world)
+
+
+def _ep_trainer(ctx, tp, layers, rows, steps, dtype, seed=11):
+    """A Trainer at Qwen3-30B-A3B widths and ``layers`` layers under
+    ``fsdp_ep_plan`` (``with_tp`` for ``tp``): expert parallelism over
+    ``ctx.ep_shard_axes`` with the token-layout flow on a mesh of more
+    than one rank, local experts on one; ``rows`` rows of EP_SEQ tokens a
+    step, weights drawn from ``seed``."""
+    import dataclasses
+
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        ModelProvider,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
+    from d9d_tpu_torch.parallel import fsdp_ep_plan
+
+    cfg = dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(),
+                              num_layers=layers)
+    if ctx.world_size > 1:
+        cfg = dataclasses.replace(
+            cfg, ep_axes=ctx.ep_shard_axes,
+            moe_token_axes=(ctx.batch_axes, ctx.sequence_axes))
+
+    class Planned(ModelProvider):
+        def build_module(self, c):
+            return Qwen3MoeCausalLM(cfg, dtype=dtype,
+                                    param_dtype=torch.float32,
+                                    device=c.device, seed=seed)
+
+        def build_plan(self, c):
+            return fsdp_ep_plan(c, with_tp=tp)
+
+    return Trainer(
+        ctx=ctx,
+        config=TrainerConfig(global_batch_size=rows, microbatch_size=rows,
+                             seq_len=EP_SEQ, total_steps=steps, log_every=1,
+                             max_grad_norm=1.0),
+        model_provider=Planned(),
+        dataset_provider=_Batches(cfg.vocab_size, steps, rows, EP_SEQ,
+                                  seed=seed + 1, loss_mask=True),
+        task=CausalLMTask(), optimizer_provider=AdamWProvider(
+            weight_decay=0.1),
+        learning_rate=3e-4)
+
+
+def _ep_counters():
+    """read_counters, and the dispatch's: count all-gathers (each one
+    readback of S), all-to-alls (calls, bytes sent, host seconds), pairs
+    dropped, rows received per layer call."""
+    from d9d_tpu_torch.core.collectives import (
+        all_to_all_rows,
+        allgather_counts,
+    )
+    from d9d_tpu_torch.ops.ep_dispatch import ep_dispatch_compute_combine
+
+    d = ep_dispatch_compute_combine
+    return {
+        **read_counters(),
+        "ep_calls": d.calls, "ep_dropped_pairs": d.dropped_pairs,
+        "ep_dispatched_bytes": d.dispatched_bytes,
+        "ep_recv_rows_min": d.recv_rows_min if d.calls else 0,
+        "ep_recv_rows_max": d.recv_rows_max,
+        "ep_recv_rows_mean": d.recv_rows_sum / max(d.calls, 1),
+        "ep_s_readbacks": allgather_counts.readbacks,
+        "ep_s_seconds": allgather_counts.seconds,
+        "a2a_calls": all_to_all_rows.calls,
+        "a2a_bytes_sent": all_to_all_rows.bytes_sent,
+        "a2a_host_staged_bytes": all_to_all_rows.host_staged_bytes,
+        "a2a_seconds": all_to_all_rows.seconds,
+    }
+
+
+def _ep_reset_counters():
+    from d9d_tpu_torch.ops import ep_dispatch
+
+    reset_counters()
+    ep_dispatch.reset_counters()
+
+
+def _param_rule_use(module, ref):
+    """The largest ``|got - want| / (EP_PARAM_TOL * (1 + |want|))`` over
+    this rank's piece of every parameter, against the same piece of the
+    one-process run's parameter ``ref[name]``; and the parameter it is
+    at."""
+    from d9d_tpu_torch.parallel.shards import local_piece, local_tensor
+
+    worst, at = 0.0, None
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            got = local_tensor(p).float()
+            want = local_piece(ref[name], p).float()
+            if got.shape != want.shape:
+                raise AssertionError(f"{name}: piece {tuple(got.shape)}, the "
+                                     f"whole's piece {tuple(want.shape)}")
+            use = ((got - want).abs() / (EP_PARAM_TOL * (1 + want.abs()))
+                   ).max().item() if got.numel() else 0.0
+            if use >= worst:
+                worst, at = use, name
+    return worst, at
+
+
+def ep_worker(rank, world, rdzv, backend):
+    """One rank of phase 12 (``chip_smoke.py --ep-worker RANK WORLD
+    RENDEZVOUS BACKEND``): the one-process reference on this rank's card,
+    the two comparison runs against it, then the main run; every result is
+    a JSON line tagged with the rank."""
+    import gc
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.ops import kernel_lib
+    from d9d_tpu_torch.parallel.shards import local_tensor
+
+    def say_rank(**obj):
+        say(rank=rank, phase="ep_train", **obj)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    devices = _cp_devices(world, backend)
+    try:
+        run = dict(EP_RUNS["ep_compare"], rows=world)
+        ref = _ep_trainer(MeshParameters().build([devices[rank]]), **run)
+        ref_steps = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                     for h in ref.train()]
+        ref_params = {n: p.detach() for n, p in ref.module.named_parameters()}
+        del ref
+        free()
+        say_rank(entry="one_process", steps=ref_steps)
+        for tag in ("ep_compare", "tp_ep_compare"):
+            run = dict(EP_RUNS[tag], rows=world)
+            ctx = MeshParameters(**_ep_mesh(world, run["tp"])).build(devices)
+            trainer = _ep_trainer(ctx, **run)
+            _ep_reset_counters()
+            t0 = time.perf_counter()
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            got = _ep_counters()
+            steps = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                     for h in hist]
+            rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                    for k in ("loss", "grad_norm")}
+                   for g, w in zip(steps, ref_steps)]
+            use, at = _param_rule_use(trainer.module, ref_params)
+            say_rank(entry=tag, mesh=_ep_mesh(world, run["tp"]),
+                     ep_axes=list(ctx.ep_shard_axes), ep_rank=ctx.ep_rank,
+                     steps=steps, rel_diff=rel, param_rule_use=use,
+                     param_rule_worst_at=at, train_seconds=train_s,
+                     counters=got)
+            del trainer
+            free()
+        del ref_params
+        free()
+
+        run = dict(EP_RUNS["main"], rows=world)
+        ctx = MeshParameters(**_ep_mesh(world, False)).build(devices)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = _ep_trainer(ctx, **run)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _ep_reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        got = _ep_counters()
+        fsdp = _collective_ms(prof)
+        vals = [h[k] for h in hist
+                for k in ("loss", "grad_norm", "task/moe_load_max_frac")]
+        if len(hist) != run["steps"] or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"ep rank {rank}: bad history {vals}")
+        walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                       for a, b in zip(hist, hist[1:])]
+        n_steps, calls = run["steps"], max(got["ep_calls"], 1)
+        with torch.no_grad():
+            params = dict(trainer.module.named_parameters())
+            held = sum(local_tensor(p).numel() for p in params.values())
+            experts = sum(local_tensor(p).numel() for n, p in params.items()
+                          if "grouped_experts" in n)
+        say_rank(
+            entry="Trainer.train", model="qwen3_30b_a3b",
+            layers=run["layers"], layers_reduced_from=48,
+            params=sum(p.numel() for p in params.values()),
+            params_on_rank=held, expert_params_on_rank=experts,
+            mesh=_ep_mesh(world, False), ep_axes=list(ctx.ep_shard_axes),
+            ep_rank=ctx.ep_rank, tokens_per_rank=EP_SEQ,
+            setup={"plan": "fsdp_ep", "param_dtype": "float32",
+                   "dtype": "bfloat16", "remat": "full",
+                   "optimizer": "AdamW", "backend": backend,
+                   "device": str(ctx.device) + (
+                       " (shared)" if backend == "gloo" else "")},
+            steps=[{"step": h["step"], "loss": h["loss"],
+                    "grad_norm": h["grad_norm"],
+                    "moe_load_max_frac": h["task/moe_load_max_frac"]}
+                   for h in hist],
+            ms_per_step=1e3 * walls[-1], ms_per_step_is_of="the last step",
+            ms_per_step_all=[1e3 * w for w in walls],
+            ms_per_step_is=(
+                "two ranks time-share one card; every all-to-all and count "
+                "all-gather crosses loopback TCP through host memory, under "
+                "the host profiler: no EP throughput" if backend == "gloo"
+                else f"one card per rank over {backend}, under the host "
+                     f"profiler"),
+            a2a_host_ms_per_step=1e3 * got["a2a_seconds"] / n_steps,
+            a2a_share_of_steps=got["a2a_seconds"] / train_s,
+            fsdp_collective_host_ms=fsdp,
+            fsdp_collective_share_of_steps=sum(fsdp.values()) / (
+                1e3 * train_s),
+            count_allgather_host_ms_per_step=(
+                1e3 * got["ep_s_seconds"] / n_steps),
+            dispatched_bytes_per_step=got["ep_dispatched_bytes"] / n_steps,
+            a2a_bytes_per_step=got["a2a_bytes_sent"] / n_steps,
+            a2a_calls_per_step=got["a2a_calls"] / n_steps,
+            s_readbacks_per_step=got["ep_s_readbacks"] / n_steps,
+            backward_group_size_readbacks_per_step=(
+                got["moe_readbacks"] / n_steps),
+            dropped_pairs=got["ep_dropped_pairs"],
+            recv_rows_per_layer_call={
+                "min": got["ep_recv_rows_min"],
+                "mean": got["ep_recv_rows_mean"],
+                "max": got["ep_recv_rows_max"],
+                "pairs_sent_per_call": EP_SEQ * 8},
+            b5_launches=got["moe_ffn_aligned"],
+            b5_launches_per_layer_call=got["moe_ffn_aligned"] / calls,
+            build_seconds=build_s,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            counters=got)
+        del trainer, params
+        free()
+    finally:
+        shutdown_distributed()
+
+
+def phase_ep_train(backend="gloo", ranks=2, timeout_s=EP_CHILD_TIMEOUT_S):
+    """Phase 12 in the parent: ``ranks`` child processes of this script
+    (runs (a)–(c), each rank holding its runs to its own one-process
+    reference); their lines are checked and re-emitted. Returns the
+    launches of the EP runs (all ranks)."""
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 12 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    if ranks % 2:
+        raise ValueError(f"phase 12 runs tp 2: {ranks} ranks")
+    t0 = time.perf_counter()
+    lines = _spawn_ranks("--ep-worker", ranks, backend, timeout_s)
+    tags = ("one_process", "ep_compare", "tp_ep_compare", "Trainer.train")
+    runs = {tag: [next(o for o in lines[r] if o.get("entry") == tag)
+                  for r in range(ranks)] for tag in tags}
+    for tag, per_rank in runs.items():
+        if any(o["steps"] != per_rank[0]["steps"] for o in per_rank):
+            raise AssertionError(f"ep ranks disagree in {tag}: {per_rank}")
+    for tag in ("ep_compare", "tp_ep_compare"):
+        for r, o in enumerate(runs[tag]):
+            bad = [(i, k, v) for i, d in enumerate(o["rel_diff"])
+                   for k, v in d.items() if v > EP_TRAIN_TOL]
+            if (len(o["steps"]) != EP_RUNS[tag]["steps"] or bad
+                    or o["param_rule_use"] > 1.0):
+                raise AssertionError(
+                    f"ep rank {r} {tag} vs one process: {o['rel_diff']} "
+                    f"(over the rule: {bad}), parameters at "
+                    f"{o['param_rule_use']} of the rule")
+    launches = {}
+    for tag in ("ep_compare", "tp_ep_compare", "Trainer.train"):
+        run = EP_RUNS[tag if tag != "Trainer.train" else "main"]
+        calls = run["steps"] * run["layers"]  # layer calls a step, one mb
+        for r, o in enumerate(runs[tag]):
+            c = o["counters"]
+            # remat: each layer's forward runs twice (dispatch and B5
+            # twice); its backward reads the group sizes once
+            want = {"moe_ffn_aligned": 2 * calls, "flash_fwd": 2 * calls,
+                    "flash_bwd_dq": calls, "flash_bwd_dkv": calls,
+                    "ep_calls": 2 * calls, "ep_s_readbacks": 2 * calls,
+                    "moe_readbacks": calls, "a2a_calls": 6 * calls,
+                    "ep_dropped_pairs": 0, "plain_calls": 0,
+                    "eager_calls": 0, "moe_ffn_gather": 0,
+                    "moe_ffn_gather_combine": 0}
+            if {k: c[k] for k in want} != want:
+                raise AssertionError(
+                    f"ep rank {r} {tag}: counters {c}, expected {want}")
+            for k in ("moe_ffn_aligned", "flash_fwd", "flash_bwd_dq",
+                      "flash_bwd_dkv"):
+                launches[k] = launches.get(k, 0) + c[k]
+    main = runs["Trainer.train"]
+    say(phase="ep_train", entry="summary", ranks=ranks, backend=backend,
+        torch=torch.__version__,
+        compare={tag: {"one_process": runs["one_process"][0]["steps"],
+                       "ep": runs[tag][0]["steps"],
+                       "rel_diff": [o["rel_diff"] for o in runs[tag]],
+                       "param_rule_use": [o["param_rule_use"]
+                                          for o in runs[tag]]}
+                 for tag in ("ep_compare", "tp_ep_compare")},
+        tolerance={"steps": EP_TRAIN_TOL, "params": EP_PARAM_TOL},
+        runs={k: {kk: str(vv) for kk, vv in v.items()}
+              for k, v in EP_RUNS.items()},
+        losses=[s_["loss"] for s_ in main[0]["steps"]],
+        moe_load_max_frac=[s_["moe_load_max_frac"]
+                           for s_ in main[0]["steps"]],
+        ms_per_step=[m["ms_per_step"] for m in main],
+        a2a_share_of_steps=[m["a2a_share_of_steps"] for m in main],
+        fsdp_collective_share_of_steps=[
+            m["fsdp_collective_share_of_steps"] for m in main],
+        peak_memory_gb=[m["peak_memory_bytes"] / 1e9 for m in main],
+        ranks_equal=True, launches=launches,
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
 def main():
     import gc
 
@@ -4829,7 +5211,7 @@ def main():
     for phase in (phase_full_width_moe, phase_full_width_train,
                   phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train,
-                  phase_dp_train, phase_tp_train):
+                  phase_dp_train, phase_tp_train, phase_ep_train):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()
@@ -4858,6 +5240,15 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--ep-worker"]:
+        ep_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    elif sys.argv[1:2] == ["--ep-only"]:
+        # phase 12 alone: python3 chip_smoke.py --ep-only nccl 2
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="ep_train", launches=phase_ep_train(
+            sys.argv[2], int(sys.argv[3]), timeout_s=300))
     elif sys.argv[1:2] == ["--tp-only"]:
         # phase 11 alone: python3 chip_smoke.py --tp-only nccl 4
         print(phase_device(), flush=True)

@@ -14,6 +14,15 @@ backward; :func:`reduce_from_group`: sum forward, identity backward), and
 :func:`all_reduce_max_`; there ``group=None`` means no group (the tensor
 itself).
 
+Expert parallelism's collectives are :func:`all_to_all_rows` (rows to
+their owners in splits given as host ints; its backward is the mirrored
+call), :func:`allgather_counts` (every rank's ``[E]`` count vector, read
+back to the host once) and the pair that lets ranks holding the same
+tokens (``tp``, ``cp_r``) each take a slice of them:
+:func:`split_to_group` (this rank's slice forward, all-gather backward)
+and :func:`gather_from_group` (all-gather forward, this rank's slice
+backward).
+
 The JAX package names mesh axes inside ``shard_map``; the port names a
 ``torch.distributed`` group. Tensors travel in buckets of at most
 ``BUCKET_BYTES``: each bucket is one collective call on one flat buffer,
@@ -204,6 +213,168 @@ def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def _staged_call(name, send, recv_numel, group, call):
+    """``call(send, recv)`` on the group's backend: on the tensors
+    themselves, or through pinned host buffers for CUDA tensors on a gloo
+    group (gloo moves host memory only, and its all-to-all and all-gather
+    take no CUDA tensor). Returns the output and the bytes staged."""
+    device = send.device
+    if not stages_through_host(group, device):
+        recv = torch.empty((recv_numel,), dtype=send.dtype, device=device)
+        call(send, recv)
+        return recv, 0
+    host_in = staging_buffer(name + "_in", send.numel(), send.dtype, device,
+                             True)
+    host_in.copy_(send)
+    host_out = staging_buffer(name + "_out", recv_numel, send.dtype, device,
+                              True)
+    call(host_in, host_out)
+    recv = host_out.to(device, non_blocking=False)
+    return recv, (send.numel() + recv_numel) * send.element_size()
+
+
+def _all_to_all(x, out_splits, in_splits, group):
+    """Rows of ``x [sum(in_splits), ...]`` to the group's ranks in order,
+    ``in_splits[r]`` rows to rank ``r``; ``out_splits[r]`` rows come from
+    rank ``r`` → ``[sum(out_splits), ...]``. Counts ``all_to_all_rows``'s
+    calls, bytes, staged bytes and host seconds."""
+    t0 = time.perf_counter()
+    row = math.prod(x.shape[1:])
+    flat = x.contiguous().view(-1)
+
+    def call(send, recv):
+        dist.all_to_all_single(recv, send, [n * row for n in out_splits],
+                               [n * row for n in in_splits], group=group)
+
+    out, staged = _staged_call("all_to_all", flat, sum(out_splits) * row,
+                               group, call)
+    all_to_all_rows.calls += 1
+    all_to_all_rows.bytes_sent += flat.numel() * flat.element_size()
+    all_to_all_rows.host_staged_bytes += staged
+    all_to_all_rows.seconds += time.perf_counter() - t0
+    return out.view(sum(out_splits), *x.shape[1:])
+
+
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group):
+        ctx.splits, ctx.group = (out_splits, in_splits), group
+        return _all_to_all(x, out_splits, in_splits, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out_splits, in_splits = ctx.splits
+        return (_all_to_all(grad, in_splits, out_splits, ctx.group),
+                None, None, None)
+
+
+def all_to_all_rows(x: torch.Tensor, out_splits: list[int],
+                    in_splits: list[int], group) -> torch.Tensor:
+    """Differentiable all-to-all of rows with split sizes (host ints):
+    ``in_splits[r]`` rows of ``x`` (in rank order) go to group rank ``r``,
+    ``out_splits[r]`` rows come back from it, concatenated in rank order.
+    The backward sends the gradient home: the same call with the splits
+    swapped. ``group=None`` (one rank): ``x`` itself."""
+    if group is None:
+        return x
+    return _AllToAllRows.apply(x, list(out_splits), list(in_splits), group)
+
+
+all_to_all_rows.calls = 0
+all_to_all_rows.bytes_sent = 0
+all_to_all_rows.host_staged_bytes = 0
+all_to_all_rows.seconds = 0.0
+
+
+def allgather_counts(counts: torch.Tensor, group) -> np.ndarray:
+    """Every group rank's count vector ``[E]`` (int64, any device) →
+    ``[W, E]`` int64 on the host, in group-rank order. ONE device-to-host
+    readback, counted in ``allgather_counts.readbacks``: the vector itself
+    when the group's backend moves host memory (gloo), the gathered matrix
+    after an all-gather on the card otherwise (NCCL). ``group=None``: the
+    vector alone, ``[1, E]``."""
+    t0 = time.perf_counter()
+    allgather_counts.readbacks += 1
+    counts = counts.to(torch.int64)
+    if group is None:
+        out = counts.cpu().numpy()[None]
+    else:
+        world = dist.get_world_size(group)
+        place = _backend_device(group)
+        send = counts.to(place)
+        recv = torch.empty(world * send.numel(), dtype=torch.int64,
+                           device=place)
+        dist.all_gather_into_tensor(recv, send, group=group)
+        out = recv.cpu().numpy().reshape(world, -1)
+    allgather_counts.seconds += time.perf_counter() - t0
+    return out
+
+
+allgather_counts.readbacks = 0
+allgather_counts.seconds = 0.0
+
+
+def _all_gather_rows(x, group):
+    """``x [n, ...]`` of every group rank, concatenated in rank order."""
+    world = dist.get_world_size(group)
+    flat = x.contiguous().view(-1)
+
+    def call(send, recv):
+        dist.all_gather_into_tensor(recv, send, group=group)
+
+    out, _ = _staged_call("all_gather", flat, world * flat.numel(), group,
+                          call)
+    return out.view(world * x.shape[0], *x.shape[1:])
+
+
+class _SplitToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, parts):
+        ctx.group = group
+        n = x.shape[0] // parts
+        return x[index * n:(index + 1) * n]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_rows(grad, ctx.group), None, None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[0]
+        ctx.index = dist.get_rank(group)
+        return _all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, i = ctx.n, ctx.index
+        return grad[i * n:(i + 1) * n], None
+
+
+def split_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """This group rank's slice of rows of ``x`` (a whole tensor every rank
+    of ``group`` holds alike; rows a multiple of the group's size): its
+    ``1/W`` share, in rank order. The backward all-gathers the slices'
+    gradients, so the whole gradient comes out on every rank
+    (``None``: ``x`` itself)."""
+    if group is None:
+        return x
+    world = dist.get_world_size(group)
+    if x.shape[0] % world:
+        raise ValueError(f"split_to_group: {x.shape[0]} rows over {world} "
+                         f"ranks")
+    return _SplitToGroup.apply(x, group, dist.get_rank(group), world)
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Every group rank's rows of ``x``, concatenated in rank order (the
+    inverse of :func:`split_to_group`); the backward takes this rank's
+    slice of the gradient, which every rank holds whole
+    (``None``: ``x`` itself)."""
+    return x if group is None else _GatherFromGroup.apply(x, group)
+
+
 class ReduceOp(str, Enum):
     # no 'avg': averaging is not associative across uneven shards
     sum = "sum"
@@ -297,7 +468,8 @@ def allgather_variadic(x, group=None) -> list[np.ndarray]:
             for i, (n, (s, _)) in enumerate(zip(sizes, meta))]
 
 
-__all__ = ["BUCKET_BYTES", "ReduceOp", "all_reduce_sum", "allgather_variadic",
-           "broadcast", "host_allgather_object", "host_allreduce",
-           "host_allreduce_tree", "host_broadcast_object", "staging_buffer",
-           "stages_through_host"]
+__all__ = ["BUCKET_BYTES", "ReduceOp", "all_reduce_sum", "all_to_all_rows",
+           "allgather_counts", "allgather_variadic", "broadcast",
+           "gather_from_group", "host_allgather_object", "host_allreduce",
+           "host_allreduce_tree", "host_broadcast_object", "split_to_group",
+           "staging_buffer", "stages_through_host"]

@@ -14,11 +14,18 @@ this rank's index on it.
 
 A mesh of one rank needs no process group and holds no ``DeviceMesh``:
 every group is ``None`` and every coordinate 0. Of the axes, ``dp_r``,
-``dp_s``, ``cp_s``, ``cp_r`` and ``tp`` can be larger than 1; ``pp`` and
-``ep_shard`` larger than 1 raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. Ranks along ``tp`` and ``cp_r`` hold the
-same rows and sequence chunk: ``tp`` cuts the parameters
-(``parallel/plan.py``), ``cp_r`` replicates everything.
+``dp_s``, ``cp_s``, ``cp_r`` and ``tp`` can be larger than 1, and so can
+the expert-shard overlay ``ep_shard``; ``pp`` larger than 1 raises
+``NotImplementedError`` naming the ROADMAP item that ports it. Ranks along
+``tp`` and ``cp_r`` hold the same rows and sequence chunk: ``tp`` cuts the
+parameters (``parallel/plan.py``), ``cp_r`` replicates everything.
+
+``ep_shard`` is no axis of its own: it names the fastest-varying suffix of
+the non-pp axes whose sizes multiply to it (``ep_shard_axes``), as in the
+JAX package. A rank's expert index (:attr:`MeshContext.ep_rank`) is
+row-major over those axes in mesh order, which is the order of the JAX
+devices under ``shard_map`` over them: a mesh coordinate owns the same
+experts in both packages.
 """
 
 import dataclasses
@@ -48,7 +55,7 @@ MESH_AXIS_NAMES: tuple[str, ...] = (
 )
 
 # axes that may not exceed 1 yet, with the ROADMAP item that ports each
-_UNPORTED_AXES = {"pp": "A8", "ep_shard": "A3.3"}
+_UNPORTED_AXES = {"pp": "A8"}
 
 
 def _suffix_axes_covering(
@@ -302,6 +309,28 @@ class MeshContext:
     @property
     def tp_rank(self) -> int:
         return self.coordinate(AXIS_TP)
+
+    @property
+    def ep_size(self) -> int:
+        return self.params.ep_shard
+
+    @property
+    def ep_group(self) -> "dist.ProcessGroup | None":
+        """The expert-parallel group over ``ep_shard_axes`` (``None`` for
+        ``ep_shard = 1``); its group ranks are :attr:`ep_rank`'s order."""
+        return self.group(*self.ep_shard_axes) if self.ep_size > 1 else None
+
+    @property
+    def ep_rank(self) -> int:
+        """This rank's index over ``ep_shard_axes``: it owns experts
+        ``[i·E/ep, (i+1)·E/ep)``."""
+        return self.coordinate(*self.ep_shard_axes)
+
+    @property
+    def ep_replicate_group(self) -> "dist.ProcessGroup | None":
+        """The group over ``ep_replicate_axes``: the ranks that hold this
+        rank's experts (``None`` for a mesh of one rank)."""
+        return self.group(*self.ep_replicate_axes)
 
     @property
     def cp_rank(self) -> int:

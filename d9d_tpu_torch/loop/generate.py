@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from d9d_tpu_torch.nn.decode_flags import continuation_chunk
+from d9d_tpu_torch.nn.moe import expert_parallel_layers
 
 
 def _top_k_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -79,6 +80,16 @@ def sample_tokens(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def refuse_expert_parallel(model, entry: str) -> None:
+    """Serving has no mesh: a model whose MoE layers were built with
+    ``ep_axes`` raises (ROADMAP A10)."""
+    layers = expert_parallel_layers(model)
+    if layers:
+        raise NotImplementedError(
+            f"{entry}: serving a model built with ep_axes ({layers[0]}, ...) "
+            f"is not ported (ROADMAP A10); build it with ep_axes=None")
+
+
 @torch.no_grad()
 def generate(
     model,
@@ -108,6 +119,7 @@ def generate(
     flash-decode kernel, whatever their size — results are exact, not
     approximate.
     """
+    refuse_expert_parallel(model, "generate")
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature > 0 needs a torch.Generator")
     if top_p is not None and not 0.0 < top_p <= 1.0:

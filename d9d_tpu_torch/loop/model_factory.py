@@ -20,7 +20,9 @@ Step 4 consumes the generator's stream as the one-process constructor
 does, so the gathered parameters equal the one-process build's bit for
 bit, and no rank holds more than one parameter whole at a time. A plan
 that cuts nothing (the replicate plan, or a mesh whose axes it maps are
-all 1) builds the module on the device directly, as before.
+all 1) builds the module on the device directly, as before. Either way the
+MoE layers built with ``ep_axes`` then get their groups on the mesh
+(``nn/moe.py`` ``bind_expert_parallel``).
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ import torch
 from torch import nn
 
 from d9d_tpu_torch.core.mesh import MeshContext
+from d9d_tpu_torch.nn.moe import bind_expert_parallel
 from d9d_tpu_torch.parallel.plan import ParallelPlan, apply_plan, plan_shards
 
 
@@ -60,13 +63,14 @@ def build_model(provider, ctx: MeshContext, plan: ParallelPlan,
         module = provider.build_module(ctx)
         if validate is not None:
             validate(module)
-        return module
-    module = provider.build_module(
-        dataclasses.replace(ctx, device=torch.device("meta")))
-    if validate is not None:
-        validate(module)
-    apply_plan(module, ctx, plan)
-    materialize_(module, ctx.device, getattr(module, "seed", None))
+    else:
+        module = provider.build_module(
+            dataclasses.replace(ctx, device=torch.device("meta")))
+        if validate is not None:
+            validate(module)
+        apply_plan(module, ctx, plan)
+        materialize_(module, ctx.device, getattr(module, "seed", None))
+    bind_expert_parallel(module, ctx)
     return module
 
 

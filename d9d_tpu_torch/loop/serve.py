@@ -70,7 +70,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from d9d_tpu_torch.loop.generate import sample_tokens
+from d9d_tpu_torch.loop.generate import refuse_expert_parallel, sample_tokens
 from d9d_tpu_torch.loop.kv_paging import PagedKVAllocator
 
 
@@ -222,6 +222,7 @@ class ContinuousBatcher:
         prefix_cache: Optional[bool] = None,
         kv_quant: Optional[str] = None,
     ):
+        refuse_expert_parallel(model, "ContinuousBatcher")
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature > 0 needs a torch.Generator")
         if chunk_size is not None and chunk_size < 1:

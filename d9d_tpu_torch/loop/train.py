@@ -17,8 +17,13 @@ chunk (its ``cp_s`` coordinate); ranks along ``cp_r`` and ``tp`` stage
 the same ones. The step sums over the data axes (``dp_r x dp_s x cp_s``),
 so the history is the same on every rank. Under ``cp_shard > 1`` the
 model must attend across ranks (the ring sdpa backend,
-``SdpaRingConfig``); MoE models on a mesh of more than one rank raise
-(expert parallelism and MoE metrics over the group: ROADMAP A3.3).
+``SdpaRingConfig``). MoE models train on any such mesh: with local
+experts (``ep_axes=None``; the expert weights whole on every rank), or
+with expert parallelism under ``fsdp_ep_plan`` (``ep_axes=
+ctx.ep_shard_axes``): each rank holds its ``E / ep_shard`` experts, whose
+gradients the step sums over the data axes outside the ep axes. The task's
+``moe_tokens_per_expert`` is summed over the data axes like every
+statistic: each token counts once, as in JAX's global count.
 
 ``__init__`` builds batch maths → model (through the provider, on the
 context's device) → optimizer → step. ``train()`` is a host loop around the
@@ -58,7 +63,7 @@ from d9d_tpu_torch.loop.control.providers import (
 from d9d_tpu_torch.loop.control.task import TrainTask
 from d9d_tpu_torch.loop.model_factory import build_model
 from d9d_tpu_torch.loop.train_step import build_eval_step, build_train_step
-from d9d_tpu_torch.nn.moe import MoELayer
+from d9d_tpu_torch.parallel.plan import expert_params
 from d9d_tpu_torch.parallel.shards import is_sharded
 from d9d_tpu_torch.tracker import NullTracker, Tracker
 
@@ -96,9 +101,17 @@ class Trainer:
         self._reduce_group = (ctx.group(*ctx.data_axes)
                               if ctx.axis_size(*ctx.data_axes) > 1 else None)
 
-        self.module = build_model(model_provider, ctx,
-                                  model_provider.build_plan(ctx),
+        plan = model_provider.build_plan(ctx)
+        self.module = build_model(model_provider, ctx, plan,
                                   validate=self._validate_module)
+        experts = expert_params(self.module, ctx, plan)
+        # the ranks holding the same experts and other tokens
+        expert_axes = tuple(a for a in ctx.data_axes
+                            if a not in ctx.ep_shard_axes)
+        expert_group = (ctx.group(*expert_axes)
+                        if experts and ctx.axis_size(*expert_axes) > 1
+                        else None)
+        sum_groups = dict.fromkeys(experts, expert_group)
         sharded = any(is_sharded(p) for p in self.module.parameters())
         if ctx.world_size > 1 and not sharded:
             with torch.no_grad():
@@ -114,6 +127,7 @@ class Trainer:
             num_microbatches=self.batch_maths.num_microbatches,
             max_grad_norm=config.max_grad_norm,
             reduce_group=self._reduce_group,
+            sum_groups=sum_groups,
         )
         self.dataset_provider = dataset_provider
         self.gc = ManualGarbageCollector(config.gc_every_steps)
@@ -125,11 +139,6 @@ class Trainer:
     def _validate_module(self, module) -> None:
         if self.ctx.world_size == 1:
             return
-        if any(isinstance(m, MoELayer) for m in module.modules()):
-            raise NotImplementedError(
-                "MoE models on a mesh of more than one rank are not ported "
-                "(expert parallelism and MoE metrics over the group: "
-                "ROADMAP A3.3)")
         sdpa = getattr(module, "sdpa", None)
         if (self.ctx.cp_size > 1 and sdpa is not None
                 and getattr(sdpa, "group", None) is None):

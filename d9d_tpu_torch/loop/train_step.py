@@ -36,10 +36,15 @@ The contract is the JAX step's:
   tensor parallelism gives every tp rank the whole loss and the whole
   gradient of each parameter it holds whole (``core/collectives.py``; the
   norms, ``q_norm``/``k_norm`` included) and its own piece of each
-  parameter it cut. Then sum-then-scale, and ONE rule for the global
+  parameter it cut. An expert weight cut over the ep axes
+  (``fsdp_ep_plan``) already holds the work of every token its experts
+  took in across the ep group: its gradient is summed over
+  ``sum_groups[p]`` instead, the data axes outside the ep axes. Then
+  sum-then-scale, and ONE rule for the global
   norm: each gradient's squares are summed over the mesh dims its
   parameter is cut over (none for a whole one, the fsdp axes and/or tp
-  for a ``DTensor`` piece), never over those that replicate it. Narrow
+  for a ``DTensor`` piece, the ep axes for an expert piece), never over
+  those that replicate it. Narrow
   sharded parameters take their fp32 gradients from ``ReducedGradients``.
   The clip and the update follow unchanged, on each rank's pieces.
 
@@ -118,12 +123,15 @@ def build_train_step(
     split_update: bool = False,
     numerics: bool = False,
     reduce_group=None,
+    sum_groups: "dict | None" = None,
 ) -> Callable[[list[dict]], dict[str, torch.Tensor]]:
     """Build the step over ``module``'s trainable parameters:
     ``step(microbatches) -> metrics``, taking the ``num_microbatches``
     staged microbatches of one optimizer step. ``reduce_group``: the
     process group the step's sums are all-reduced over (``None``: no
-    other rank holds other rows or positions)."""
+    other rank holds other rows or positions); ``sum_groups``: ``{param:
+    group}`` for parameters FSDP does not manage whose gradients are
+    summed over another group (``None``: over none)."""
     unported = {"anomaly_policy": anomaly_policy is not None,
                 "zero": zero is not None, "split_update": split_update,
                 "numerics": numerics}
@@ -145,6 +153,9 @@ def build_train_step(
     # FSDP reduces these gradients; the step sums the others
     by_fsdp = [p in managed for p in params]
     groups = [cut_groups(p) for p in params]
+    sum_groups = sum_groups or {}
+    # the group each gradient FSDP does not reduce is summed over
+    grad_groups = [sum_groups.get(p, reduce_group) for p in params]
     planned = bool(managed)
     reduced = (ReducedGradients(module)
                if any(f and n for f, n in zip(by_fsdp, narrow)) else None)
@@ -194,7 +205,8 @@ def build_train_step(
                 grads.append(g)
             del accs, fp32
             # this rank's rows' and positions' part, summed here
-            whole = [g for g, f in zip(grads, by_fsdp) if not f]
+            whole = [g for g, f, gr in zip(grads, by_fsdp, grad_groups)
+                     if not f and gr is reduce_group]
             if reduce_group is not None:
                 # copies: a task may hand back one tensor as both its weight
                 # and a statistic, and each must be summed once
@@ -204,6 +216,12 @@ def build_train_step(
                 all_reduce_sum(whole + sums, reduce_group)
                 loss_sum, weight_sum = sums[:2]
                 metrics_sum = dict(zip(keys, sums[2:]))
+            others: dict = {}
+            for g, f, gr in zip(grads, by_fsdp, grad_groups):
+                if not f and gr is not reduce_group and gr is not None:
+                    others.setdefault(gr, []).append(g)
+            for gr, gs in others.items():
+                all_reduce_sum(gs, gr)
             # sum-then-scale by the global weight
             inv_w = 1.0 / torch.clamp(weight_sum, min=1e-8)
             torch._foreach_mul_(grads, inv_w)

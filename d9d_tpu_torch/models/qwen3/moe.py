@@ -9,8 +9,10 @@ forward and KV-cache decode (``decode_max_length > 0``: ``generate`` and
 entry points of :class:`~d9d_tpu_torch.models.qwen3.dense.Qwen3CausalLMBase`).
 The config has the JAX dataclass's fields; those the port cannot honour yet
 raise when the model is built: GDN layers (``linear_attention_layers``),
-MLA (``mla``), expert parallelism (``ep_axes``, ``moe_token_axes``) and
-remat policies other than ``"full"``.
+MLA (``mla``) and remat policies other than ``"full"``. Expert parallelism
+(``ep_axes``, ``moe_token_axes``, ``ep_capacity_factor``) goes to every
+MoE layer, as in the JAX package; such a model trains under
+``fsdp_ep_plan`` and is not served (ROADMAP A10).
 
 ``moe_ffn`` picks the fused expert-FFN kernel of every MoE layer
 (``"aligned"``, ``"gather"``, ``"gather_combine"``; ``ops/moe_ffn.py``).
@@ -132,9 +134,6 @@ def _check_ported(cfg: Qwen3MoeConfig) -> None:
     unported = {
         "linear_attention_layers (GDN)": bool(cfg.linear_attention_layers),
         "mla": cfg.mla is not None,
-        "ep_axes (expert parallelism, ROADMAP A3)": cfg.ep_axes is not None,
-        "moe_token_axes (expert parallelism, ROADMAP A3)":
-            cfg.moe_token_axes is not None,
     }
     on = [k for k, v in unported.items() if v]
     if on:
@@ -187,6 +186,8 @@ class Qwen3MoeDecoderLayer(nn.Module):
                 cfg.num_experts_per_tok,
                 router_renormalize_probabilities=cfg.norm_topk_prob,
                 shared_expert=cfg.shared_expert,
+                ep_axes=cfg.ep_axes,
+                token_axes=cfg.moe_token_axes,
                 ep_capacity_factor=cfg.ep_capacity_factor,
                 routed_scaling=cfg.routed_scaling_factor,
                 router_n_group=cfg.router_n_group,
@@ -234,6 +235,15 @@ class Qwen3MoeBackbone(nn.Module):
             cfg.rope_scaling, device=dev)
         self.register_buffer("inv_freq", inv_freq, persistent=False)
         self.rope_attention_scale = att_scale
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Recompute the rope buffer (the sharded init materializes the
+        model from the meta device, buffers included)."""
+        cfg = self.config
+        inv_freq, _ = compute_rope_frequencies(
+            int(cfg.head_dim * cfg.rope_fraction), cfg.rope_theta,
+            cfg.rope_scaling, device=self.inv_freq.device)
+        self.inv_freq.copy_(inv_freq)
 
     def forward(self, x, positions, mask: Optional[torch.Tensor] = None,
                 cache: Optional[DecodeCache] = None):

@@ -1,8 +1,18 @@
 """Mixture-of-Experts blocks: router, grouped experts, shared expert, layer
-(counterpart of ``d9d_tpu/nn/moe.py``), on the local path — every expert
-on this device. The expert-parallel path (``_forward_ep``,
-``ops/ep_dispatch.py``) is not ported: ``ep_axes`` other than ``None``
-raises.
+(counterpart of ``d9d_tpu/nn/moe.py``).
+
+``ep_axes=None`` is the local path: every expert on this device. With
+``ep_axes`` (mesh axis names, ``MeshContext.ep_shard_axes``) the layer runs
+the expert-parallel path (``_forward_ep``, ``ops/ep_dispatch.py``): each
+rank of the ep group holds ``E / W`` experts — ``fsdp_ep_plan`` cuts the
+expert weights on dim 0 over those axes — and pairs travel to their
+expert's owner and back through an all-to-all. The layer learns its groups
+from the mesh through :func:`bind_expert_parallel` (the model factory
+calls it); ``ep_axes=()`` is one rank owning every expert and needs none.
+Either way the experts run the layer's fused expert-FFN kernel
+(``moe_ffn``): on the EP path over the received rows, at ``e_loc``
+experts, one pair a row, probs 1 (the probs weigh the results after they
+come home, as in the JAX package).
 
 Where the JAX layer sows its per-expert load into flax's ``moe_stats``
 collection, the port's layer hands ``tokens_per_expert`` to a collector
@@ -20,7 +30,9 @@ from typing import Literal, Optional
 import torch
 from torch import nn
 
+from d9d_tpu_torch.core.collectives import gather_from_group, split_to_group
 from d9d_tpu_torch.core.device import resolve_device
+from d9d_tpu_torch.core.mesh import AXIS_CP_SHARD, MeshContext
 from d9d_tpu_torch.nn.init import variance_scaling_uniform_
 from d9d_tpu_torch.nn.linear import Projection
 from d9d_tpu_torch.nn.logical_axes import (
@@ -30,6 +42,7 @@ from d9d_tpu_torch.nn.logical_axes import (
     EXPERT_MLP,
 )
 from d9d_tpu_torch.nn.mlp import SwiGLU
+from d9d_tpu_torch.ops.ep_dispatch import ep_dispatch_compute_combine
 from d9d_tpu_torch.ops.moe import grouped_swiglu_apply, sort_tokens_by_expert
 from d9d_tpu_torch.ops.moe_ffn import MOE_FFN_VARIANTS, fused_moe_ffn_apply
 
@@ -87,6 +100,11 @@ class TopKRouter(nn.Module):
             num_experts, dtype=torch.float32, device=resolve_device(device))
             if enable_expert_bias else None)
 
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        # the gate draws its own; the bias starts at zero
+        if self.expert_bias is not None:
+            self.expert_bias.zero_()
+
     def forward(self, hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``hidden [..., D]`` → ``(indices [..., K] int64, probs [..., K]
         fp32)``."""
@@ -114,7 +132,10 @@ class GroupedSwiGLU(nn.Module):
     """E SwiGLU experts. Parameters ``gate_proj``, ``up_proj`` ``[E, hidden,
     inter]`` and ``down_proj [E, inter, hidden]`` — the JAX layout, not
     transposed — drawn as flax's ``variance_scaling(1/3, "fan_in",
-    "uniform", in_axis=1, out_axis=2)`` draws them (fan-in ``E * in``)."""
+    "uniform", in_axis=1, out_axis=2)`` draws them (fan-in ``E * in``).
+    Under ``fsdp_ep_plan`` each is a ``DTensor`` holding this rank's
+    experts; :meth:`reset_parameters` draws the whole ``[E, in, out]``
+    value and writes that piece, as the one-process build draws it."""
 
     def __init__(
         self,
@@ -132,15 +153,19 @@ class GroupedSwiGLU(nn.Module):
         dev = resolve_device(device)
 
         def weight(din, dout):
-            w = torch.empty((num_experts, din, dout),
-                            dtype=param_dtype or dtype, device=dev)
-            variance_scaling_uniform_(w, 1.0 / 3.0, num_experts * din,
-                                      generator)
-            return nn.Parameter(w)
+            return nn.Parameter(torch.empty((num_experts, din, dout),
+                                            dtype=param_dtype or dtype,
+                                            device=dev))
 
         self.gate_proj = weight(hidden_dim, intermediate_dim)
         self.up_proj = weight(hidden_dim, intermediate_dim)
         self.down_proj = weight(intermediate_dim, hidden_dim)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        for w in (self.gate_proj, self.up_proj, self.down_proj):
+            variance_scaling_uniform_(w, 1.0 / 3.0, w.shape[0] * w.shape[1],
+                                      generator)
 
     def logical_axes(self) -> dict:
         return {"gate_proj": (EXPERT, EXPERT_EMBED, EXPERT_MLP),
@@ -200,9 +225,103 @@ def collect_tokens_per_expert(module: nn.Module):
             layer._stats_sink = None
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertParallelGroups:
+    """What the EP path of a layer needs of the mesh: the ep ``group``
+    (``None``: one rank), this rank's index on it and its size; and the
+    ``dup`` group over the ep axes that carry no tokens upstream (``tp``,
+    ``cp_r``: their ranks hold the same tokens, and each takes its slice of
+    them; ``None`` when there are none)."""
+
+    group: object = None
+    rank: int = 0
+    world: int = 1
+    dup_group: object = None
+
+
+_ONE_RANK = ExpertParallelGroups()
+
+
+def bind_expert_parallel(module: nn.Module, ctx: MeshContext) -> None:
+    """Give every :class:`MoELayer` of ``module`` with ``ep_axes`` its
+    groups on ``ctx`` (collective: every rank calls it, in the same order).
+
+    Token layout (``token_axes=(batch_axes, seq_axes)``): each rank
+    dispatches its own ``[b_loc, t_loc]`` block; the ep axes outside the
+    token axes subdivide it (``dup``). Legacy flow (``token_axes=None``):
+    the JAX package flattens the global batch and cuts it over the ep
+    axes; that is each rank's own block (then subdivided the same way)
+    when the sequence is whole (``cp_s = 1``) and every batch axis larger
+    than 1 is an ep axis. Any other legacy mesh raises (ROADMAP A3.4)."""
+    for name, layer in module.named_modules():
+        if not isinstance(layer, MoELayer) or layer.ep_axes is None:
+            continue
+        axes = layer.ep_axes
+        world = ctx.axis_size(*axes) if axes else 1
+        if layer.num_experts % world:
+            raise ValueError(f"{name}: num_experts {layer.num_experts} not "
+                             f"divisible by ep size {world}")
+        if layer.token_axes is None:
+            whole = [a for a in ctx.batch_axes
+                     if ctx.axis_size(a) > 1 and a not in axes]
+            if ctx.axis_size(AXIS_CP_SHARD) > 1 or whole:
+                raise NotImplementedError(
+                    f"{name}: the legacy EP flow (token_axes=None) on a mesh "
+                    f"with cp_shard > 1 or batch axes {whole} outside the ep "
+                    f"axes {axes} is not ported (ROADMAP A3.4); pass "
+                    f"token_axes=(ctx.batch_axes, ctx.sequence_axes)")
+            carrying = set(ctx.batch_axes)
+        else:
+            carrying = {a for part in layer.token_axes for a in part}
+        dup = tuple(a for a in axes
+                    if a not in carrying and ctx.axis_size(a) > 1)
+        layer._ep = ExpertParallelGroups(
+            group=ctx.group(*axes) if world > 1 else None,
+            rank=ctx.coordinate(*axes), world=world,
+            dup_group=ctx.group(*dup) if dup else None)
+
+
+def expert_parallel_layers(module: nn.Module) -> list[str]:
+    """Names of the :class:`MoELayer` s of ``module`` built with
+    ``ep_axes``."""
+    return [n for n, m in module.named_modules()
+            if isinstance(m, MoELayer) and m.ep_axes is not None]
+
+
+def expert_ffn(weights, dtype: torch.dtype, moe_ffn: MoeFfn = "aligned"):
+    """The EP path's expert compute over this rank's ``weights`` (gate, up,
+    down ``[e_loc, ...]``): ``fn(rows, labels, group_sizes)`` runs the
+    fused expert-FFN kernel ``moe_ffn`` on the received rows, one pair a
+    row of local expert ``labels``, probs 1 → ``[rows, D]`` in their
+    order (``ops/ep_dispatch.py``'s ``expert_fn``)."""
+    gather, combine = MOE_FFN_VARIANTS[moe_ffn]
+    e_loc = weights[0].shape[0]
+
+    def fn(rows, labels, group_sizes):
+        if rows.shape[0] == 0:
+            # a result (and a gradient on the way back) all the same: the
+            # return trip's collective runs on every rank
+            return rows * 0
+        sort = sort_tokens_by_expert(labels[:, None], e_loc)
+        ones = torch.ones((rows.shape[0], 1), dtype=torch.float32,
+                          device=rows.device)
+        return fused_moe_ffn_apply(rows, ones, sort, *weights, dtype,
+                                   num_experts=e_loc, gather=gather,
+                                   combine=combine)
+
+    return fn
+
+
+def _local(w: torch.Tensor) -> torch.Tensor:
+    """This rank's experts of a weight (a ``DTensor`` under
+    ``fsdp_ep_plan``), differentiable."""
+    return w.to_local() if hasattr(w, "to_local") else w
+
+
 class MoELayer(nn.Module):
     """Router + expert-sorted dispatch + grouped experts + combine (+ shared
-    expert), on the local path. Submodules ``router``, ``grouped_experts``,
+    expert), on the local path (``ep_axes=None``) or the expert-parallel
+    one. Submodules ``router``, ``grouped_experts``,
     ``shared_expert_module`` — the JAX layer's names.
 
     ``moe_ffn`` selects the fused expert-FFN kernel the layer runs: the
@@ -236,16 +355,16 @@ class MoELayer(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if ep_axes is not None or token_axes is not None:
-            raise NotImplementedError(
-                "MoELayer: the expert-parallel path (ep_axes, token_axes) is "
-                "not ported yet (ROADMAP A3); the local path takes "
-                "ep_axes=None")
         if moe_ffn not in MOE_FFN_VARIANTS:
             raise ValueError(f"moe_ffn {moe_ffn!r} is not one of "
                              f"{sorted(MOE_FFN_VARIANTS)}")
-        # ep_capacity_factor sizes the EP dispatch buffer only; the local
-        # path ignores it, as in the JAX package
+        # ep_capacity_factor sizes the EP dispatch only; the local path
+        # ignores it, as in the JAX package
+        self.ep_axes = None if ep_axes is None else tuple(ep_axes)
+        self.token_axes = (None if token_axes is None
+                           else tuple(tuple(a) for a in token_axes))
+        self.ep_capacity_factor = ep_capacity_factor
+        self._ep = _ONE_RANK
         self.num_experts = num_grouped_experts
         self.routed_scaling = routed_scaling
         self.moe_ffn = moe_ffn
@@ -266,23 +385,14 @@ class MoELayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         """``[B, T, D]`` → ``[B, T, D]``."""
-        shape = hidden.shape
         shared = None
         if self.shared_expert_module is not None:
             shared = self.shared_expert_module(hidden)
         topk_ids, topk_probs = self.router(hidden)
-        k = topk_ids.shape[-1]
-        sort = sort_tokens_by_expert(topk_ids.reshape(-1, k), self.num_experts)
-        if self._stats_sink is not None:
-            # the per-expert pair counts ARE the sort's group sizes
-            self._stats_sink.append(sort.group_sizes)
-        gather, combine = MOE_FFN_VARIANTS[self.moe_ffn]
-        experts = self.grouped_experts
-        out = fused_moe_ffn_apply(
-            hidden.reshape(-1, shape[-1]), topk_probs.reshape(-1, k), sort,
-            experts.gate_proj, experts.up_proj, experts.down_proj, self.dtype,
-            num_experts=self.num_experts, gather=gather, combine=combine,
-        ).reshape(shape)
+        if self.ep_axes is None:
+            out = self._forward_local(hidden, topk_ids, topk_probs)
+        else:
+            out = self._forward_ep(hidden, topk_ids, topk_probs)
         if self.routed_scaling != 1.0:
             # on the routed output only, as a scalar of the output's dtype
             scale = torch.tensor(self.routed_scaling, dtype=out.dtype)
@@ -291,14 +401,72 @@ class MoELayer(nn.Module):
             out = out + shared
         return out
 
+    def _forward_local(self, hidden, topk_ids, topk_probs):
+        shape, k = hidden.shape, topk_ids.shape[-1]
+        sort = sort_tokens_by_expert(topk_ids.reshape(-1, k), self.num_experts)
+        if self._stats_sink is not None:
+            # the per-expert pair counts ARE the sort's group sizes
+            self._stats_sink.append(sort.group_sizes)
+        gather, combine = MOE_FFN_VARIANTS[self.moe_ffn]
+        experts = self.grouped_experts
+        return fused_moe_ffn_apply(
+            hidden.reshape(-1, shape[-1]), topk_probs.reshape(-1, k), sort,
+            experts.gate_proj, experts.up_proj, experts.down_proj, self.dtype,
+            num_experts=self.num_experts, gather=gather, combine=combine,
+        ).reshape(shape)
+
+    def _forward_ep(self, hidden, topk_ids, topk_probs):
+        """``hidden [B, T, D]``, ids/probs ``[B, T, K]`` → ``[B, T, D]``:
+        this rank's block (its ``1/dup`` slice of it) dispatched over the
+        ep group, its output gathered back over the dup group."""
+        ep = self._ep
+        if ep is _ONE_RANK and self.ep_axes:
+            raise RuntimeError(
+                f"MoELayer with ep_axes={self.ep_axes} has no mesh: build "
+                f"the model through the model factory, or call "
+                f"bind_expert_parallel(model, ctx)")
+        shape, k = hidden.shape, topk_ids.shape[-1]
+        ids = topk_ids.reshape(-1, k)
+        if self._stats_sink is not None:
+            # the whole block's counts: the dup slices hold the same tokens
+            flat = ids.reshape(-1)
+            self._stats_sink.append(torch.zeros(
+                self.num_experts, dtype=torch.int64,
+                device=ids.device).scatter_add_(0, flat, torch.ones_like(flat)))
+        x = hidden.reshape(-1, shape[-1])
+        probs = topk_probs.reshape(-1, k)
+        if ep.dup_group is not None:
+            x = split_to_group(x, ep.dup_group)
+            probs = split_to_group(probs, ep.dup_group)
+            ids = split_to_group(ids, ep.dup_group)  # no gradient: a slice
+        e_loc = self.num_experts // ep.world
+        experts = self.grouped_experts
+        weights = [_local(w) for w in (experts.gate_proj, experts.up_proj,
+                                       experts.down_proj)]
+        if weights[0].shape[0] != e_loc:
+            raise ValueError(
+                f"MoELayer: this rank holds {weights[0].shape[0]} experts, "
+                f"the ep group of {ep.world} wants {e_loc}: cut the expert "
+                f"weights with fsdp_ep_plan")
+        out = ep_dispatch_compute_combine(
+            x, ids, probs, expert_ffn(weights, self.dtype, self.moe_ffn),
+            group=ep.group, ep_rank=ep.rank, e_loc=e_loc,
+            capacity_factor=self.ep_capacity_factor)
+        out = gather_from_group(out, ep.dup_group)
+        return out.reshape(shape).to(hidden.dtype)
+
 
 __all__ = [
+    "ExpertParallelGroups",
     "GroupedSwiGLU",
     "MoELayer",
     "SharedExpertParameters",
     "SharedSwiGLU",
     "TopKRouter",
+    "bind_expert_parallel",
     "collect_tokens_per_expert",
+    "expert_ffn",
+    "expert_parallel_layers",
     "grouped_swiglu_apply",
     "top_k_indices",
 ]

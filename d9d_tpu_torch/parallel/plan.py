@@ -8,8 +8,9 @@ tables on their ``vocab`` dim, over the fused ``dp_s x cp_s`` axes;
 ``hsdp_plan`` is the same table, ``dp_r`` replicating because no rule
 names it; ``tp_plan`` maps ``heads``, ``kv_heads``, ``mlp`` and ``vocab``
 to ``tp``, and ``with_tp=True`` adds those rules to the fsdp tables, the
-vocab tables then cut over ``(tp, dp_s, cp_s)``, tp major. Expert
-parallelism (``fsdp_ep_plan``) raises.
+vocab tables then cut over ``(tp, dp_s, cp_s)``, tp major;
+``fsdp_ep_plan`` is the fsdp table plus ``expert`` mapped to
+``ep_shard_axes`` and the expert weights' feature dims whole.
 
 :func:`apply_plan` does explicitly what GSPMD does with the JAX tables:
 
@@ -28,7 +29,15 @@ parallelism (``fsdp_ep_plan``) raises.
    tp-cut projection on its other dim (a block), a vocab table on the dim
    tp cut (FSDP2's ``_StridedShard``: tp outer, fsdp inner). A parameter
    with no such dim (a norm weight, the sinks) is left out of FSDP
-   (``ignored_params``) and the train step sums its gradient itself.
+   (``ignored_params``) and the train step sums its gradient itself;
+3. expert parallelism: each expert weight whose ``expert`` dim maps to the
+   ep axes becomes a ``DTensor`` cut on dim 0 over their sub-mesh — this
+   rank's ``E / W`` experts, never gathered — and stays out of FSDP and
+   tensor parallelism. The step sums its gradient over the data axes
+   outside the ep axes (the ranks holding the same experts and other
+   tokens) and its norm over the ep group. The model's MoE layers get
+   their groups from the model factory (``nn/moe.py``
+   ``bind_expert_parallel``).
 
 Gradients are SUMMED over the shard and replicate dims (divide factor 1,
 sum reductions), not averaged: the train step scales by the global loss
@@ -109,28 +118,42 @@ def tp_plan(ctx: MeshContext) -> ParallelPlan:
 
 
 def fsdp_ep_plan(ctx: MeshContext, *, with_tp: bool = False) -> ParallelPlan:
-    raise NotImplementedError(
-        "fsdp_ep_plan: expert parallelism is not ported yet (ROADMAP A3.3)")
+    """FSDP/HSDP for the dense parameters, expert parallelism for the MoE
+    weights: ``expert`` over the ep axes, their feature dims whole."""
+    rules = [(la.EMBED, ctx.fsdp_axes), (la.EXPERT, ctx.ep_shard_axes),
+             (la.EXPERT_EMBED, None), (la.EXPERT_MLP, None)]
+    if with_tp:
+        rules += _tp_rules()
+    rules += _vocab_table_rules(ctx, with_tp=with_tp)
+    return ParallelPlan(name="fsdp_ep", rules=tuple(rules))
 
 
 def _cut_dims(module: nn.Module, ctx: MeshContext, plan: ParallelPlan,
-              tp: bool) -> dict[str, "int | None"]:
-    """Each parameter's dim mapped to ``tp`` (``tp``) or to the fsdp axes
-    (not ``tp``) under ``plan``; ``None``: none. A dim mapped to other mesh
-    axes, or to tp after the fsdp axes, raises, as do two dims of one
-    parameter mapped to the same axes."""
+              kind: str) -> dict[str, "int | None"]:
+    """Each parameter's dim mapped to ``tp`` (``kind="tp"``), to the fsdp
+    axes (``"fsdp"``) or, an ``expert`` dim, to the ep axes (``"ep"``)
+    under ``plan``; ``None``: none. A dim mapped to other mesh axes, or to
+    tp after the fsdp axes, raises, as do two dims of one parameter mapped
+    to the same axes."""
     fsdp = tuple(ctx.fsdp_axes)
+    ep = tuple(ctx.ep_shard_axes)
     out = {}
     for name, layout in la.param_layouts(module).items():
         dims = []
-        for d, axes in enumerate(plan.mesh_axes(layout.axes)):
+        for d, (logical, axes) in enumerate(
+                zip(layout.axes, plan.mesh_axes(layout.axes))):
+            if logical == la.EXPERT and ep and axes == ep:
+                if kind == "ep" and ctx.axis_size(*ep) > 1:
+                    dims.append(d)
+                continue
             rest = tuple(a for a in axes if a != AXIS_TP)
             if rest not in ((), fsdp) or AXIS_TP in axes[1:]:
                 raise NotImplementedError(
-                    f"{name}: dim {d} maps to {axes}; only tp and the fsdp "
-                    f"axes {fsdp}, tp major, are ported (expert axes: "
-                    f"ROADMAP A3.3)")
-            if (AXIS_TP in axes) if tp else bool(rest):
+                    f"{name}: dim {d} maps to {axes}; only tp, the fsdp "
+                    f"axes {fsdp} (tp major) and, on an expert dim, the ep "
+                    f"axes {ep} are ported")
+            if (AXIS_TP in axes) if kind == "tp" else (
+                    kind == "fsdp" and bool(rest)):
                 dims.append(d)
         if len(dims) > 1:
             raise NotImplementedError(
@@ -143,14 +166,21 @@ def shard_dims(module: nn.Module, ctx: MeshContext,
                plan: ParallelPlan) -> dict[str, "int | None"]:
     """Each parameter's dim sharded over ``ctx.fsdp_axes`` under ``plan``
     (``None``: whole over them)."""
-    return _cut_dims(module, ctx, plan, tp=False)
+    return _cut_dims(module, ctx, plan, "fsdp")
+
+
+def ep_dims(module: nn.Module, ctx: MeshContext,
+            plan: ParallelPlan) -> dict[str, "int | None"]:
+    """Each parameter's dim cut over ``ctx.ep_shard_axes`` under ``plan``
+    (its ``expert`` dim; ``None``: whole over them)."""
+    return _cut_dims(module, ctx, plan, "ep")
 
 
 def tp_dims(module: nn.Module, ctx: MeshContext,
             plan: ParallelPlan) -> dict[str, "int | None"]:
     """Each parameter's dim cut over ``tp`` under ``plan`` (``None``:
     whole over it)."""
-    return _cut_dims(module, ctx, plan, tp=True)
+    return _cut_dims(module, ctx, plan, "tp")
 
 
 def plan_shards(ctx: MeshContext, plan: ParallelPlan) -> bool:
@@ -162,7 +192,6 @@ def plan_shards(ctx: MeshContext, plan: ParallelPlan) -> bool:
 def _apply_tp(module: nn.Module, ctx: MeshContext,
               dims: dict[str, int]) -> None:
     """Step 1 of :func:`apply_plan` for the parameters ``dims`` cuts."""
-    from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,
@@ -193,12 +222,46 @@ def _apply_tp(module: nn.Module, ctx: MeshContext,
             style.src_data_rank = None
             styles[mod_name] = style
         else:
-            p = getattr(mod, leaf)
-            mod.register_parameter(leaf, nn.Parameter(
-                distribute_tensor(p.detach(), mesh, [Shard(dim)],
-                                  src_data_rank=None),
-                requires_grad=p.requires_grad))
+            _cut_param(mod, leaf, mesh, dim)
     parallelize_module(module, mesh, styles)
+
+
+def _cut_param(mod: nn.Module, leaf: str, mesh, dim: int) -> None:
+    """``mod.<leaf>`` as a ``DTensor`` cut on ``dim`` over the 1-D
+    ``mesh``: every rank holds the same values (or none yet, on the meta
+    device), and each keeps its chunk; nothing is scattered."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    p = getattr(mod, leaf)
+    mod.register_parameter(leaf, nn.Parameter(
+        distribute_tensor(p.detach(), mesh, [Shard(dim)], src_data_rank=None),
+        requires_grad=p.requires_grad))
+
+
+def _apply_ep(module: nn.Module, ctx: MeshContext,
+              dims: dict[str, int]) -> None:
+    """Step 3 of :func:`apply_plan`: each expert weight becomes a
+    ``DTensor`` cut on its expert dim over the ep sub-mesh."""
+    from d9d_tpu_torch.nn.moe import MoELayer
+
+    ep = tuple(ctx.ep_shard_axes)
+    for name, m in module.named_modules():
+        if isinstance(m, MoELayer) and m.ep_axes != ep:
+            raise ValueError(
+                f"{name}: built with ep_axes={m.ep_axes}, the plan cuts its "
+                f"experts over {ep}: build it with ep_axes=ctx.ep_shard_axes")
+    mesh = ctx.submesh(*ep)
+    for name, dim in dims.items():
+        mod_name, _, leaf = name.rpartition(".")
+        _cut_param(module.get_submodule(mod_name), leaf, mesh, dim)
+
+
+def expert_params(module: nn.Module, ctx: MeshContext,
+                  plan: ParallelPlan) -> list[nn.Parameter]:
+    """The parameters of ``module`` that :func:`apply_plan` cuts over the
+    ep axes under ``plan``."""
+    return [module.get_parameter(n)
+            for n, d in ep_dims(module, ctx, plan).items() if d is not None]
 
 
 def apply_plan(module: nn.Module, ctx: MeshContext,
@@ -211,11 +274,15 @@ def apply_plan(module: nn.Module, ctx: MeshContext,
     if ctx.tp_size > 1:
         tp = {n: d for n, d in tp_dims(module, ctx, plan).items()
               if d is not None}
+    ep = {n: d for n, d in ep_dims(module, ctx, plan).items()
+          if d is not None}
     dims = shard_dims(module, ctx, plan)
     fsdp = (ctx.axis_size(*ctx.fsdp_axes) > 1
             and any(d is not None for d in dims.values()))
     if tp:
         _apply_tp(module, ctx, tp)
+    if ep:
+        _apply_ep(module, ctx, ep)
     if not fsdp:
         return module
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
@@ -300,6 +367,6 @@ class ReducedGradients:
 
 
 __all__ = ["LogicalRules", "ParallelPlan", "ReducedGradients", "apply_plan",
-           "fsdp_ep_plan", "fsdp_modules", "fsdp_params", "fsdp_plan",
-           "hsdp_plan", "plan_shards", "replicate_plan", "shard_dims",
-           "tp_dims", "tp_plan"]
+           "ep_dims", "expert_params", "fsdp_ep_plan", "fsdp_modules",
+           "fsdp_params", "fsdp_plan", "hsdp_plan", "plan_shards",
+           "replicate_plan", "shard_dims", "tp_dims", "tp_plan"]

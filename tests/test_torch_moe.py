@@ -188,17 +188,17 @@ def test_moe_layer_matches_jax_and_counts_tokens_per_expert(case):
 
 
 def test_unported_layer_and_config_options_raise():
-    """What still raises: expert parallelism (ROADMAP A3), GDN, MLA and the
-    remat policies other than "full". KV-cache decode is ported and builds
-    a model that makes its cache."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        MoELayer(64, 64, 8, 2, ep_axes=("ep",), device="cpu")
+    """What still raises: GDN, MLA, the remat policies other than "full",
+    serving a model built with ep_axes (ROADMAP A10), and an EP layer that
+    no mesh was bound to. Expert parallelism itself builds (its training is
+    tests/test_torch_ep.py's), and so does KV-cache decode, which makes its
+    cache."""
+    from d9d_tpu_torch.loop import ContinuousBatcher, generate
+
     with pytest.raises(ValueError, match="moe_ffn"):
         MoELayer(64, 64, 8, 2, moe_ffn="xla", device="cpu")
     base = Qwen3MoeConfig.tiny()
-    for field, value in (("ep_axes", ("ep",)),
-                         ("moe_token_axes", (("dp",), ("cp",))),
-                         ("linear_attention_layers", (0,)),
+    for field, value in (("linear_attention_layers", (0,)),
                          ("mla", object())):
         with pytest.raises(NotImplementedError, match=field):
             Qwen3MoeCausalLM(dataclasses.replace(base, **{field: value}),
@@ -206,10 +206,21 @@ def test_unported_layer_and_config_options_raise():
     with pytest.raises(NotImplementedError, match="remat_policy"):
         Qwen3MoeCausalLM(dataclasses.replace(
             base, remat=True, remat_policy="save_expensive"), device="cpu")
-    for field in ("ep_axes", "moe_token_axes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            Qwen3MoeCausalLM(dataclasses.replace(base, **{field: ("ep",)}),
-                             device="cpu")
+    for field, value in (("ep_axes", ("dp_s",)),
+                         ("moe_token_axes", (("dp_s",), ("cp_s",)))):
+        ep = Qwen3MoeCausalLM(dataclasses.replace(base, **{field: value}),
+                              decode_max_length=64, dtype=torch.float32,
+                              device="cpu")
+        if field == "ep_axes":
+            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+                generate(ep, torch.zeros((1, 4), dtype=torch.int64),
+                         max_new_tokens=2)
+            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+                ContinuousBatcher(ep, batch_size=2)
+    layer = MoELayer(64, 64, 8, 2, ep_axes=("dp_s",), dtype=torch.float32,
+                     device="cpu")
+    with pytest.raises(RuntimeError, match="bind_expert_parallel"):
+        layer(torch.zeros((1, 4, 64)))
     served = Qwen3MoeCausalLM(base, decode_max_length=64, device="cpu")
     cache = served.init_cache(2)
     assert cache.keys[0].shape[-2] == 64

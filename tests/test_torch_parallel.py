@@ -22,6 +22,7 @@ processes are ``tests/test_torch_dp_train.py``):
   function does;
 - the host collectives return their input without a process group.
 """
+import dataclasses
 import random
 
 import numpy as np
@@ -160,10 +161,39 @@ def test_mesh_vocabulary_matches_jax():
 
 
 def test_unported_plans_raise():
-    ctx = MeshContext(params=MeshParameters(dp_shard=2),
-                      device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3.3"):
-        fsdp_ep_plan(ctx)
+    """``fsdp_ep_plan`` (with and without tp) carries JAX's table rule for
+    rule (``expert`` over the ep axes, the expert weights' feature dims
+    whole), and the dims it cuts are JAX's: each expert weight's expert dim
+    over the ep axes, no expert dim over tp or the fsdp axes."""
+    from d9d_tpu.parallel import fsdp_ep_plan as j_fsdp_ep_plan
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
+    from d9d_tpu_torch.parallel.plan import ep_dims, tp_dims
+
+    for mesh in (dict(dp_replicate=2, dp_shard=2, ep_shard=2),
+                 dict(dp_shard=2, tp=2, ep_shard=4)):
+        with_tp = "tp" in mesh
+        jctx = JMeshParameters(**mesh).build(
+            jax.devices()[:JMeshParameters(**mesh).world_size])
+        ctx = MeshContext(params=MeshParameters(**mesh),
+                          device=torch.device("cpu"))
+        port, ref = fsdp_ep_plan(ctx, with_tp=with_tp), j_fsdp_ep_plan(
+            jctx, with_tp=with_tp)
+        assert ctx.ep_shard_axes == jctx.ep_shard_axes
+        assert ctx.ep_replicate_axes == jctx.ep_replicate_axes
+        assert (port.name, port.rules) == (ref.name, ref.rules)
+        model = Qwen3MoeCausalLM(dataclasses.replace(
+            Qwen3MoeConfig.tiny(), ep_axes=ctx.ep_shard_axes), device="meta")
+        cuts = {"ep": ep_dims(model, ctx, port),
+                "fsdp": shard_dims(model, ctx, port),
+                "tp": tp_dims(model, ctx, port) if with_tp else {}}
+        experts = [n for n in cuts["ep"] if "grouped_experts" in n]
+        assert len(experts) == 3 * Qwen3MoeConfig.tiny().num_layers
+        for name, dim in cuts["ep"].items():
+            assert dim == (0 if name in experts else None), name
+        for name in experts:
+            assert cuts["fsdp"][name] is None
+            assert cuts["tp"].get(name) is None
+        assert cuts["fsdp"]["model.layers.0.mlp.router.gate.weight"] == 1
 
 
 @pytest.mark.parametrize("mesh", [dict(tp=2), dict(dp_shard=2, tp=2),
