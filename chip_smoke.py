@@ -3902,7 +3902,7 @@ CP_RANKS = 2
 CP_CHILD_TIMEOUT_S = 900
 CP_LAYERS = 2        # of Qwen3-8B's 36
 CP_SEQ = 16384       # global tokens per step, T_loc = 8192 per rank
-CP_STEPS = 2         # cut from 3 to keep the script in its time
+CP_STEPS = 1         # cut from 3 (PR 18: 2, PR 19: 1) to keep the script in time
 CP_COMPARE_LAYERS = 1
 CP_COMPARE_SEQ = 4096
 CP_TRAIN_TOL = 1e-4  # ring vs flash backend, fp32: sums in other orders
@@ -4049,7 +4049,8 @@ def cp_worker(rank, world, rdzv, backend):
             raise AssertionError(f"cp rank {rank}: bad history {vals}")
         walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
                                        for a, b in zip(hist, hist[1:])]
-        ms_step = 1e3 * statistics.median(walls[1:])
+        # the median after the first step; the one step where there is one
+        ms_step = 1e3 * statistics.median(walls[1:] or walls)
         n_params = sum(p.numel() for p in trainer.module.parameters())
         say_rank(phase="cp_train", entry="Trainer.train",
                  model="qwen3_8b", layers=cfg.num_layers,
@@ -4082,16 +4083,18 @@ def cp_worker(rank, world, rdzv, backend):
         shutdown_distributed()
 
 
-def _spawn_ranks(flag, ranks, backend, timeout_s):
+def _spawn_ranks(flag, ranks, backend, timeout_s, extra=(), env=None):
     """Run ``ranks`` child processes of this script (``flag RANK RANKS
-    RENDEZVOUS BACKEND``) on the card(s) and wait for them; re-emit their
-    JSON lines and return them, one list per rank. A rank that exits
-    non-zero fails the phase."""
+    RENDEZVOUS BACKEND *extra``, with ``env`` added to their environment)
+    on the card(s) and wait for them; re-emit their JSON lines and return
+    them, one list per rank. A rank that exits non-zero fails the
+    phase."""
     import json as _json
     import os
     import tempfile
 
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+               **(env or {}))
     with tempfile.TemporaryDirectory() as tmp:
         procs, logs = [], []
         for r in range(ranks):
@@ -4100,7 +4103,8 @@ def _spawn_ranks(flag, ranks, backend, timeout_s):
             logs.append((out, err))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), flag,
-                 str(r), str(ranks), f"file://{tmp}/rendezvous", backend],
+                 str(r), str(ranks), f"file://{tmp}/rendezvous", backend,
+                 *extra],
                 stdout=out, stderr=err, env=env,
                 cwd=os.path.dirname(os.path.abspath(__file__))))
         deadline = time.monotonic() + timeout_s
@@ -4119,11 +4123,15 @@ def _spawn_ranks(flag, ranks, backend, timeout_s):
             texts.append((out.read(), err.read()))
             out.close()
             err.close()
-    for r, (p, (out, err)) in enumerate(zip(procs, texts)):
-        if p.returncode != 0:
-            raise AssertionError(
-                f"{flag} rank {r} exited {p.returncode}:\n{out[-2000:]}\n"
-                f"{err[-4000:]}")
+    failed = [(r, p.returncode, out, err)
+              for r, (p, (out, err)) in enumerate(zip(procs, texts))
+              if p.returncode != 0]
+    if failed:
+        # every failed rank: the first to fail is often not rank 0 (the
+        # others then see their peer's connection reset)
+        raise AssertionError("\n".join(
+            f"{flag} rank {r} exited {rc}:\n{out[-1000:]}\n{err[-3000:]}"
+            for r, rc, out, err in failed))
     lines = [[_json.loads(x) for x in out.splitlines() if x.startswith("{")]
              for out, _ in texts]
     for rank_lines in lines:
@@ -4853,9 +4861,11 @@ EP_SEQ = 2048
 # one-process run (the same N rows); (c) the main run, one row a rank, bf16
 # compute, timed.
 EP_RUNS = {
-    "ep_compare": dict(tp=False, layers=1, steps=2, dtype=torch.float32),
-    "tp_ep_compare": dict(tp=True, layers=1, steps=2, dtype=torch.float32),
-    "main": dict(tp=False, layers=2, steps=2, dtype=torch.bfloat16),
+    # one step each (cut from 2 in PR 19 to keep the script in its time):
+    # phase 13 holds expert parallelism, dup included, for 2 fp32 steps
+    "ep_compare": dict(tp=False, layers=1, steps=1, dtype=torch.float32),
+    "tp_ep_compare": dict(tp=True, layers=1, steps=1, dtype=torch.float32),
+    "main": dict(tp=False, layers=2, steps=1, dtype=torch.bfloat16),
 }
 
 
@@ -4865,12 +4875,14 @@ def _ep_mesh(world, tp):
     return dict(dp_shard=world, ep_shard=world)
 
 
-def _ep_trainer(ctx, tp, layers, rows, steps, dtype, seed=11):
+def _ep_trainer(ctx, tp, layers, rows, steps, dtype, seed=11, seq=EP_SEQ,
+                legacy=False):
     """A Trainer at Qwen3-30B-A3B widths and ``layers`` layers under
     ``fsdp_ep_plan`` (``with_tp`` for ``tp``): expert parallelism over
-    ``ctx.ep_shard_axes`` with the token-layout flow on a mesh of more
-    than one rank, local experts on one; ``rows`` rows of EP_SEQ tokens a
-    step, weights drawn from ``seed``."""
+    ``ctx.ep_shard_axes`` with the token-layout flow (``legacy``: the
+    legacy flow, ``token_axes=None``) on a mesh of more than one rank,
+    local experts on one; ``rows`` rows of ``seq`` tokens a step in one
+    microbatch, weights drawn from ``seed``."""
     import dataclasses
 
     from d9d_tpu_torch.loop import (
@@ -4888,7 +4900,8 @@ def _ep_trainer(ctx, tp, layers, rows, steps, dtype, seed=11):
     if ctx.world_size > 1:
         cfg = dataclasses.replace(
             cfg, ep_axes=ctx.ep_shard_axes,
-            moe_token_axes=(ctx.batch_axes, ctx.sequence_axes))
+            moe_token_axes=None if legacy else (ctx.batch_axes,
+                                                ctx.sequence_axes))
 
     class Planned(ModelProvider):
         def build_module(self, c):
@@ -4902,10 +4915,10 @@ def _ep_trainer(ctx, tp, layers, rows, steps, dtype, seed=11):
     return Trainer(
         ctx=ctx,
         config=TrainerConfig(global_batch_size=rows, microbatch_size=rows,
-                             seq_len=EP_SEQ, total_steps=steps, log_every=1,
+                             seq_len=seq, total_steps=steps, log_every=1,
                              max_grad_norm=1.0),
         model_provider=Planned(),
-        dataset_provider=_Batches(cfg.vocab_size, steps, rows, EP_SEQ,
+        dataset_provider=_Batches(cfg.vocab_size, steps, rows, seq,
                                   seed=seed + 1, loss_mask=True),
         task=CausalLMTask(), optimizer_provider=AdamWProvider(
             weight_decay=0.1),
@@ -5190,6 +5203,420 @@ def phase_ep_train(backend="gloo", ranks=2, timeout_s=EP_CHILD_TIMEOUT_S):
     return launches
 
 
+# ---- phase 13: the example's own mesh and the export it ends with ---------
+# ``example/qwen3_moe/pretrain.json``'s mesh, dp_replicate 2 x dp_shard 2 x
+# tp 2, ep_shard 4 (ep over (dp_s, tp), dup = tp, the experts replicated
+# over dp_r), eight ranks on one card over gloo, at Qwen3-30B-A3B widths
+# and 1 of its 48 layers, one MESH_SEQ-token row a data rank. The plan is
+# fsdp_ep_plan(with_tp=True): the example's plan leaves the dense weights
+# whole over tp (≈ 13.7 GB a rank, 8 of them beyond the card). The parent
+# first trains the one-process fp32 reference alone on the card and saves
+# its final parameters (``save_params``); then (a) the mesh trains
+# MESH_FP32_STEPS fp32 steps in the legacy flow (JAX's pieces of the
+# flattened global batch, regrouped over the ranks), held to the reference
+# step by step and, each rank reading its rows of the saved parameters,
+# piece by piece; rank 0 exports the trained model through
+# ``qwen3_moe_to_hf_mapper`` (``Trainer.export``) and every rank holds its
+# pieces to the export bit for bit; (b) one bf16-compute step in the token
+# flow, timed per rank. Last, the parent loads the export in one process
+# (this one, once the ranks are gone) and its loss on the first batch must
+# be the mesh's. On a machine with 8
+# cards, ``python3 chip_smoke.py --mesh-only nccl 8`` runs this phase alone
+# with one card per rank.
+
+MESH_RANKS = 8
+MESH_CHILD_TIMEOUT_S = 600
+MESH_PARAMS = dict(dp_replicate=2, dp_shard=2, tp=2, ep_shard=4)
+MESH_SEQ = 1024
+MESH_ROWS = 4          # one row a data rank (dp_r x dp_s)
+MESH_FP32_STEPS = 2
+MESH_SHARD_GB = 2.0    # export files of at most 2 GB: the fp32 tables are 1.24
+MESH_SEED = 13
+
+
+def _mesh_trainer(ctx, legacy, dtype, steps):
+    return _ep_trainer(ctx, tp=True, layers=1, rows=MESH_ROWS, steps=steps,
+                       dtype=dtype, seed=MESH_SEED, seq=MESH_SEQ,
+                       legacy=legacy)
+
+
+def _mesh_config():
+    import dataclasses
+
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeConfig
+
+    return dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(), num_layers=1)
+
+
+def _rule_use_against(module, ref_dir):
+    """:func:`_param_rule_use` against saved parameters: each rank reads
+    only its pieces of them."""
+    import json as _json
+
+    from d9d_tpu_torch.model_state.io.module import read_piece
+    from d9d_tpu_torch.model_state.io.safetensors_format import (
+        SafetensorsFile,
+    )
+    from d9d_tpu_torch.parallel.shards import local_tensor
+
+    index = _json.load(open(f"{ref_dir}/model.safetensors.index.json"))
+    worst, at = 0.0, None
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            with SafetensorsFile(f"{ref_dir}/{index['weight_map'][name]}") as f:
+                want = read_piece(f, name, p).to(p.device).float()
+            got = local_tensor(p).float()
+            use = ((got - want).abs() / (EP_PARAM_TOL * (1 + want.abs()))
+                   ).max().item() if got.numel() else 0.0
+            if use >= worst:
+                worst, at = use, name
+    return worst, at
+
+
+def _export_mismatches(module, export_dir):
+    """The parameters whose piece on this rank is not, bit for bit, its
+    piece of the export read back through ``qwen3_moe_from_hf_mapper``."""
+    from d9d_tpu_torch.model_state import read_model_state
+    from d9d_tpu_torch.models.qwen3.huggingface import (
+        qwen3_moe_from_hf_mapper,
+    )
+    from d9d_tpu_torch.parallel.shards import local_piece, local_tensor
+
+    params = dict(module.named_parameters())
+    seen, bad = set(), []
+    for name, whole in read_model_state(
+            export_dir, qwen3_moe_from_hf_mapper(_mesh_config())):
+        p = params[name]
+        seen.add(name)
+        if not torch.equal(local_piece(whole, p),
+                           local_tensor(p.detach()).cpu()):
+            bad.append(name)
+    return bad + sorted(set(params) - seen)
+
+
+def mesh_worker(rank, world, rdzv, backend, ref_dir, export_dir):
+    """One rank of phase 13 (``chip_smoke.py --mesh-worker RANK WORLD
+    RENDEZVOUS BACKEND REF_DIR EXPORT_DIR``): the fp32 legacy-flow run
+    held to the parent's reference in ``REF_DIR``, its export to
+    ``EXPORT_DIR``, then the timed bf16 token-flow step; every result is a
+    JSON line tagged with the rank."""
+    import faulthandler
+    import gc
+    import json as _json
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.models.qwen3.huggingface import qwen3_moe_to_hf_mapper
+    from d9d_tpu_torch.ops import kernel_lib
+    from d9d_tpu_torch.parallel.shards import local_tensor
+
+    def say_rank(**obj):
+        say(rank=rank, phase="mesh_train", **obj)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    faulthandler.enable()  # a crashed rank prints where it was
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    devices = _cp_devices(world, backend)
+    try:
+        ref_steps = _json.load(open(f"{ref_dir}/steps.json"))
+        ctx = MeshParameters(**MESH_PARAMS).build(devices)
+        trainer = _mesh_trainer(ctx, legacy=True, dtype=torch.float32,
+                                steps=MESH_FP32_STEPS)
+        say_rank(entry="built", allocated=torch.cuda.memory_allocated())
+        _ep_reset_counters()
+        t0 = time.perf_counter()
+        hist = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = _ep_counters()
+        steps = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                 for h in hist]
+        rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                for k in ("loss", "grad_norm")}
+               for g, w in zip(steps, ref_steps)]
+        use, at = _rule_use_against(trainer.module, ref_dir)
+        mesh_loss = trainer.loss_on_batch(trainer.dataset_provider.batches[0])
+        t0 = time.perf_counter()
+        trainer.export(export_dir, mapper=qwen3_moe_to_hf_mapper(
+            _mesh_config()), shard_size_gb=MESH_SHARD_GB)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mismatches = _export_mismatches(trainer.module, export_dir)
+        verify_s = time.perf_counter() - t0
+        index = _json.load(open(f"{export_dir}/model.safetensors.index.json"))
+        say_rank(entry="fp32_legacy", mesh=MESH_PARAMS,
+                 ep_axes=list(ctx.ep_shard_axes), ep_rank=ctx.ep_rank,
+                 steps=steps, rel_diff=rel, param_rule_use=use,
+                 param_rule_worst_at=at, train_seconds=train_s,
+                 mesh_loss=mesh_loss, export_seconds=export_s,
+                 export_bytes=index["metadata"]["total_size"],
+                 export_files=len(set(index["weight_map"].values())),
+                 export_tensors=len(index["weight_map"]),
+                 export_mismatches=mismatches, verify_seconds=verify_s,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 counters=got)
+        del trainer
+        free()
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = _mesh_trainer(ctx, legacy=False, dtype=torch.bfloat16,
+                                steps=1)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _ep_reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        got = _ep_counters()
+        fsdp = _collective_ms(prof)
+        tp_ms = _collective_host_ms(prof)
+        vals = [h[k] for h in hist
+                for k in ("loss", "grad_norm", "task/moe_load_max_frac")]
+        if len(hist) != 1 or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"mesh rank {rank}: bad history {vals}")
+        with torch.no_grad():
+            params = dict(trainer.module.named_parameters())
+            held = sum(local_tensor(p).numel() for p in params.values())
+            experts = sum(local_tensor(p).numel() for n, p in params.items()
+                          if "grouped_experts" in n)
+        collective_ms = (sum(fsdp.values()) + 1e3 * got["a2a_seconds"]
+                         + 1e3 * got["ep_s_seconds"])
+        say_rank(
+            entry="Trainer.train", model="qwen3_30b_a3b", layers=1,
+            layers_reduced_from=48,
+            params=sum(p.numel() for p in params.values()),
+            params_on_rank=held, expert_params_on_rank=experts,
+            mesh=MESH_PARAMS, ep_axes=list(ctx.ep_shard_axes),
+            ep_rank=ctx.ep_rank, tokens_per_rank=MESH_SEQ,
+            setup={"plan": "fsdp_ep(with_tp)", "flow": "token",
+                   "param_dtype": "float32", "dtype": "bfloat16",
+                   "remat": "full", "optimizer": "AdamW",
+                   "backend": backend,
+                   "device": str(ctx.device) + (
+                       " (shared)" if backend == "gloo" else "")},
+            steps=[{"step": h["step"], "loss": h["loss"],
+                    "grad_norm": h["grad_norm"],
+                    "moe_load_max_frac": h["task/moe_load_max_frac"]}
+                   for h in hist],
+            ms_per_step=1e3 * train_s,
+            ms_per_step_is=(
+                "eight ranks time-share one card; every collective crosses "
+                "loopback TCP through host memory, under the host profiler: "
+                "no distributed throughput" if backend == "gloo"
+                else f"one card per rank over {backend}, under the host "
+                     f"profiler"),
+            collective_share_of_step=collective_ms / (1e3 * train_s),
+            fsdp_collective_host_ms=fsdp,
+            tp_collective_host_ms=sum(tp_ms.values()),
+            a2a_host_ms=1e3 * got["a2a_seconds"],
+            a2a_bytes=got["a2a_bytes_sent"], a2a_calls=got["a2a_calls"],
+            count_allgather_host_ms=1e3 * got["ep_s_seconds"],
+            s_readbacks=got["ep_s_readbacks"],
+            backward_group_size_readbacks=got["moe_readbacks"],
+            dropped_pairs=got["ep_dropped_pairs"],
+            recv_rows_per_layer_call={
+                "min": got["ep_recv_rows_min"],
+                "mean": got["ep_recv_rows_mean"],
+                "max": got["ep_recv_rows_max"]},
+            b5_launches=got["moe_ffn_aligned"],
+            build_seconds=build_s,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            counters=got)
+        del trainer, params
+        free()
+    finally:
+        shutdown_distributed()
+
+
+def mesh_reference(backend, ref_dir):
+    """The one-process fp32 run of phase 13, alone on the card, in a child
+    of its own (``chip_smoke.py --mesh-reference 0 1 - BACKEND REF_DIR``,
+    so that nothing of it stays on the card): its steps and final
+    parameters into ``ref_dir``."""
+    import json as _json
+
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.model_state import save_params
+    from d9d_tpu_torch.ops import kernel_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()
+    t0 = time.perf_counter()
+    ref = _mesh_trainer(MeshParameters().build(_cp_devices(1, backend)),
+                        legacy=True, dtype=torch.float32,
+                        steps=MESH_FP32_STEPS)
+    steps = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+             for h in ref.train()]
+    t1 = time.perf_counter()
+    save_params(ref_dir, ref.module)
+    with open(f"{ref_dir}/steps.json", "w") as f:
+        _json.dump(steps, f)
+    say(phase="mesh_train", entry="one_process", steps=steps,
+        train_seconds=t1 - t0, save_seconds=time.perf_counter() - t1,
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _mesh_reload(backend, export_dir):
+    """Load phase 13's export onto the card in this process, once the
+    ranks are gone, through ``qwen3_moe_from_hf_mapper`` → its loss on the
+    phase's first batch, the seconds the load took and the peak memory."""
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.model_state import load_params
+    from d9d_tpu_torch.models.qwen3.huggingface import (
+        qwen3_moe_from_hf_mapper,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _mesh_trainer(MeshParameters().build(_cp_devices(1, backend)),
+                            legacy=True, dtype=torch.float32, steps=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_params(export_dir, trainer.module,
+                mapper=qwen3_moe_from_hf_mapper(_mesh_config()))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    return dict(loss=trainer.loss_on_batch(trainer.dataset_provider.batches[0]),
+                load_seconds=load_s,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_mesh_train(backend="gloo", ranks=MESH_RANKS,
+                     timeout_s=MESH_CHILD_TIMEOUT_S):
+    """Phase 13 in the parent: the reference, ``ranks`` child processes of
+    this script on ``pretrain.json``'s mesh, their lines checked and
+    re-emitted, then the export loaded in one process. Returns the
+    launches of the mesh runs (all ranks)."""
+    import gc
+    import shutil
+    import tempfile
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 13 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    from d9d_tpu_torch.core import MeshParameters
+
+    world = MeshParameters(**MESH_PARAMS).world_size
+    if ranks != world:
+        raise ValueError(f"phase 13's mesh {MESH_PARAMS} has {world} ranks")
+    t0 = time.perf_counter()
+    ref_dir, export_dir = tempfile.mkdtemp(), tempfile.mkdtemp()
+    try:
+        ref = _spawn_ranks("--mesh-reference", 1, backend, timeout_s,
+                           extra=(ref_dir,))[0][-1]
+        # eight processes share the card: grow their pools in place
+        # rather than leave cached blocks stranded between them
+        lines = _spawn_ranks(
+            "--mesh-worker", ranks, backend, timeout_s,
+            extra=(ref_dir, export_dir),
+            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        runs = {tag: [next(o for o in lines[r] if o.get("entry") == tag)
+                      for r in range(ranks)]
+                for tag in ("fp32_legacy", "Trainer.train")}
+        for tag, per_rank in runs.items():
+            if any(o["steps"] != per_rank[0]["steps"] for o in per_rank):
+                raise AssertionError(f"mesh ranks disagree in {tag}: "
+                                     f"{per_rank}")
+        for r, o in enumerate(runs["fp32_legacy"]):
+            bad = [(i, k, v) for i, d in enumerate(o["rel_diff"])
+                   for k, v in d.items() if v > EP_TRAIN_TOL]
+            if (len(o["steps"]) != MESH_FP32_STEPS or bad
+                    or o["param_rule_use"] > 1.0 or o["export_mismatches"]):
+                raise AssertionError(
+                    f"mesh rank {r} vs one process: {o['rel_diff']} (over "
+                    f"the rule: {bad}), parameters at {o['param_rule_use']} "
+                    f"of the rule, export mismatches "
+                    f"{o['export_mismatches']}")
+        mesh_loss = runs["fp32_legacy"][0]["mesh_loss"]
+        t1 = time.perf_counter()
+        reload = _mesh_reload(backend, export_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        export_loss, load_s = reload["loss"], reload["load_seconds"]
+        loss_rel = abs(export_loss - mesh_loss) / abs(mesh_loss)
+        if loss_rel > EP_TRAIN_TOL:
+            raise AssertionError(f"the export's loss {export_loss} against "
+                                 f"the mesh's {mesh_loss}: {loss_rel}")
+        launches = {}
+        for tag, steps in (("fp32_legacy", MESH_FP32_STEPS),
+                           ("Trainer.train", 1)):
+            for r, o in enumerate(runs[tag]):
+                c = o["counters"]
+                # one layer, one microbatch a step, full remat: the layer's
+                # forward runs twice, its backward reads the group sizes
+                # once; the legacy flow adds its exchanges to the
+                # all-to-alls (x, probs, ids out and the results home in
+                # each forward, x, probs and the results back in the
+                # backward)
+                want = {"moe_ffn_aligned": 2 * steps, "flash_fwd": 2 * steps,
+                        "flash_bwd_dq": steps, "flash_bwd_dkv": steps,
+                        "ep_calls": 2 * steps, "ep_s_readbacks": 2 * steps,
+                        "moe_readbacks": steps,
+                        "a2a_calls": (17 if tag == "fp32_legacy" else 6)
+                        * steps,
+                        "ep_dropped_pairs": 0, "plain_calls": 0,
+                        "eager_calls": 0, "moe_ffn_gather": 0,
+                        "moe_ffn_gather_combine": 0}
+                if {k: c[k] for k in want} != want:
+                    raise AssertionError(
+                        f"mesh rank {r} {tag}: counters {c}, expected {want}")
+                for k in ("moe_ffn_aligned", "flash_fwd", "flash_bwd_dq",
+                          "flash_bwd_dkv"):
+                    launches[k] = launches.get(k, 0) + c[k]
+        fp32, main = runs["fp32_legacy"], runs["Trainer.train"]
+        say(phase="mesh_train", entry="summary", ranks=ranks,
+            backend=backend, torch=torch.__version__, mesh=MESH_PARAMS,
+            tokens_per_rank=MESH_SEQ,
+            reference_seconds=ref["train_seconds"] + ref["save_seconds"],
+            reference_peak_memory_gb=ref["peak_memory_bytes"] / 1e9,
+            compare={"one_process": ref["steps"], "mesh": fp32[0]["steps"],
+                     "rel_diff": [o["rel_diff"] for o in fp32],
+                     "param_rule_use": [o["param_rule_use"] for o in fp32]},
+            tolerance={"steps": EP_TRAIN_TOL, "params": EP_PARAM_TOL},
+            export={"bytes": fp32[0]["export_bytes"],
+                    "files": fp32[0]["export_files"],
+                    "tensors": fp32[0]["export_tensors"],
+                    "seconds": fp32[0]["export_seconds"],
+                    "verify_seconds": [o["verify_seconds"] for o in fp32],
+                    "bit_equal_on_every_rank": True,
+                    "one_process_load_seconds": load_s,
+                    "one_process_peak_memory_gb":
+                        reload["peak_memory_bytes"] / 1e9,
+                    "loss": export_loss, "mesh_loss": mesh_loss,
+                    "loss_rel_diff": loss_rel,
+                    "check_seconds": time.perf_counter() - t1},
+            legacy_a2a_calls_per_step=fp32[0]["counters"]["a2a_calls"]
+            / MESH_FP32_STEPS,
+            fp32_peak_memory_gb=[o["peak_memory_bytes"] / 1e9 for o in fp32],
+            ms_per_step=[m["ms_per_step"] for m in main],
+            collective_share_of_step=[m["collective_share_of_step"]
+                                      for m in main],
+            a2a_host_ms=[m["a2a_host_ms"] for m in main],
+            peak_memory_gb=[m["peak_memory_bytes"] / 1e9 for m in main],
+            ranks_equal=True, launches=launches,
+            seconds=time.perf_counter() - t0)
+        return launches
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        shutil.rmtree(export_dir, ignore_errors=True)
+
+
 def main():
     import gc
 
@@ -5211,7 +5638,8 @@ def main():
     for phase in (phase_full_width_moe, phase_full_width_train,
                   phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train,
-                  phase_dp_train, phase_tp_train, phase_ep_train):
+                  phase_dp_train, phase_tp_train, phase_ep_train,
+                  phase_mesh_train):
         for name, n in phase().items():
             launches[name] += n
         gc.collect()
@@ -5243,6 +5671,17 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--ep-worker"]:
         ep_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
+    elif sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                    sys.argv[5], sys.argv[6], sys.argv[7])
+    elif sys.argv[1:2] == ["--mesh-reference"]:
+        mesh_reference(sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--mesh-only"]:
+        # phase 13 alone: python3 chip_smoke.py --mesh-only nccl 8
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="mesh_train", launches=phase_mesh_train(
+            sys.argv[2], int(sys.argv[3]), timeout_s=600))
     elif sys.argv[1:2] == ["--ep-only"]:
         # phase 12 alone: python3 chip_smoke.py --ep-only nccl 2
         print(phase_device(), flush=True)

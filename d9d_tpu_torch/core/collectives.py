@@ -16,12 +16,14 @@ itself).
 
 Expert parallelism's collectives are :func:`all_to_all_rows` (rows to
 their owners in splits given as host ints; its backward is the mirrored
-call), :func:`allgather_counts` (every rank's ``[E]`` count vector, read
-back to the host once) and the pair that lets ranks holding the same
-tokens (``tp``, ``cp_r``) each take a slice of them:
-:func:`split_to_group` (this rank's slice forward, all-gather backward)
-and :func:`gather_from_group` (all-gather forward, this rank's slice
-backward).
+call), :func:`exchange_rows` (chosen rows of this rank to chosen ranks,
+a row to several of them, and the received rows put in a given order:
+the legacy flow's regrouping of the global batch), :func:`allgather_counts`
+(every rank's ``[E]`` count vector, read back to the host once) and the
+pair that lets ranks holding the same tokens (``tp``, ``cp_r``) each take
+a slice of them: :func:`split_to_group` (this rank's slice forward,
+all-gather backward) and :func:`gather_from_group` (all-gather forward,
+this rank's slice backward).
 
 The JAX package names mesh axes inside ``shard_map``; the port names a
 ``torch.distributed`` group. Tensors travel in buckets of at most
@@ -286,6 +288,21 @@ all_to_all_rows.host_staged_bytes = 0
 all_to_all_rows.seconds = 0.0
 
 
+def exchange_rows(x: torch.Tensor, send: torch.Tensor, send_splits,
+                  recv_splits, order: torch.Tensor, group) -> torch.Tensor:
+    """Rows ``x[send]`` to the group's ranks in rank order,
+    ``send_splits[r]`` of them to rank ``r`` (``send`` may name a row
+    more than once: it goes to each such rank); ``recv_splits[r]`` rows
+    come from rank ``r``, and the received rows, concatenated in rank
+    order, are returned in ``order`` (``recv[order]``). Differentiable:
+    the gradient goes home through the mirrored all-to-all, and a row sent
+    to several ranks sums their gradients. ``send``, ``order``: int64 on
+    ``x``'s device; splits: host ints."""
+    rows = all_to_all_rows(x.index_select(0, send), recv_splits, send_splits,
+                           group)
+    return rows.index_select(0, order)
+
+
 def allgather_counts(counts: torch.Tensor, group) -> np.ndarray:
     """Every group rank's count vector ``[E]`` (int64, any device) →
     ``[W, E]`` int64 on the host, in group-rank order. ONE device-to-host
@@ -470,6 +487,6 @@ def allgather_variadic(x, group=None) -> list[np.ndarray]:
 
 __all__ = ["BUCKET_BYTES", "ReduceOp", "all_reduce_sum", "all_to_all_rows",
            "allgather_counts", "allgather_variadic", "broadcast",
-           "gather_from_group", "host_allgather_object", "host_allreduce",
-           "host_allreduce_tree", "host_broadcast_object", "split_to_group",
-           "staging_buffer", "stages_through_host"]
+           "exchange_rows", "gather_from_group", "host_allgather_object",
+           "host_allreduce", "host_allreduce_tree", "host_broadcast_object",
+           "split_to_group", "staging_buffer", "stages_through_host"]

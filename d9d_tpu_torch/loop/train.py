@@ -29,8 +29,10 @@ statistic: each token counts once, as in JAX's global count.
 context's device) → optimizer → step. ``train()`` is a host loop around the
 step; staging a batch and the metric readback on the ``log_every`` cadence
 are its only per-step host work, and metrics stay on the device between
-log steps. Of the JAX trainer's loop components the port has the stepper,
-the metric collector, the manual GC and the null tracker; checkpointing,
+log steps. :meth:`Trainer.export` writes the trained model as sharded
+safetensors (the example's last step). Of the JAX trainer's loop
+components the port has the stepper, the metric collector, the manual GC
+and the null tracker; checkpointing,
 profiling, the watchdog, the anomaly guard, preemption, prefetch and
 telemetry sinks are not ported yet (their config fields raise).
 """
@@ -223,6 +225,26 @@ class Trainer:
         finally:
             self.run.close()
         return history
+
+    # -- export -----------------------------------------------------------
+
+    def export(self, out_dir, mapper=None, shard_size_gb: float = 4.0) -> None:
+        """Write the model's weights as sharded safetensors through
+        ``mapper`` (``None``: the parameters under their own names; e.g.
+        ``qwen3_moe_to_hf_mapper(cfg)`` for an HF checkpoint). On a mesh
+        it is collective: every rank calls it, each sharded parameter is
+        put together whole on rank 0 alone, one at a time, and rank 0
+        writes (``model_state/io/module.py`` ``save_params``)."""
+        from d9d_tpu_torch.model_state.io.module import save_params
+
+        save_params(out_dir, self.merged_params(), mapper=mapper,
+                    shard_size_gb=shard_size_gb)
+
+    def merged_params(self) -> dict[str, torch.Tensor]:
+        """The parameters to export: the module's own (each rank's pieces
+        of the sharded ones). PEFT and pipeline stages, which the JAX
+        trainer merges here, raise where the trainer is built."""
+        return dict(self.module.named_parameters())
 
     def loss_on_batch(self, raw_batch: dict) -> float:
         """Weighted loss of ``raw_batch`` under the current parameters,

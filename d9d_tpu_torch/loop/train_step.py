@@ -250,10 +250,10 @@ def build_eval_step(*, module: nn.Module, task: TrainTask,
                     reduce_group=None):
     """Forward-only: ``Σ loss_sum / max(Σ weight, 1e-8)`` over the
     microbatches (and over ``reduce_group``'s ranks: the data axes), as a
-    device scalar. A planned module is resharded after it:
-    with no backward to reshard them, FSDP's root would keep its
-    parameters gathered (and registered in place of its pieces)."""
-    planned = bool(fsdp_modules(module))
+    device scalar. A planned module's FSDP units are resharded after it:
+    with no backward to reshard them, the root would keep its parameters
+    gathered (and registered in place of its pieces)."""
+    planned = fsdp_modules(module)
 
     @torch.no_grad()
     def step(microbatches: list[dict]) -> torch.Tensor:
@@ -262,8 +262,8 @@ def build_eval_step(*, module: nn.Module, task: TrainTask,
             loss, weight, _ = task.loss_fn(module, mb)
             loss_sum = loss_sum + loss.float()
             weight_sum = weight_sum + weight.float()
-        if planned:
-            module.reshard()
+        for m in planned:
+            m.reshard()
         if reduce_group is not None:
             loss_sum, weight_sum = loss_sum.clone(), weight_sum.clone()
             all_reduce_sum([loss_sum, weight_sum], reduce_group)

@@ -6,7 +6,10 @@
 the expert-parallel path (``_forward_ep``, ``ops/ep_dispatch.py``): each
 rank of the ep group holds ``E / W`` experts — ``fsdp_ep_plan`` cuts the
 expert weights on dim 0 over those axes — and pairs travel to their
-expert's owner and back through an all-to-all. The layer learns its groups
+expert's owner and back through an all-to-all. In the token-layout flow
+(``token_axes``) each rank dispatches its own block; in the legacy flow
+(``token_axes=None``) the pieces of the JAX package's flattened global
+batch, which the layer first gathers (:class:`LegacyPieces`). The layer learns its groups
 from the mesh through :func:`bind_expert_parallel` (the model factory
 calls it); ``ep_axes=()`` is one rank owning every expert and needs none.
 Either way the experts run the layer's fused expert-FFN kernel
@@ -25,14 +28,22 @@ layer call is counted once, as the JAX ``sow`` counts it.
 
 import contextlib
 import dataclasses
+import itertools
+import math
 from typing import Literal, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from d9d_tpu_torch.core.collectives import gather_from_group, split_to_group
+from d9d_tpu_torch.core.collectives import (
+    exchange_rows,
+    gather_from_group,
+    split_to_group,
+)
 from d9d_tpu_torch.core.device import resolve_device
-from d9d_tpu_torch.core.mesh import AXIS_CP_SHARD, MeshContext
+from d9d_tpu_torch.core.mesh import MESH_AXIS_NAMES, MeshContext
 from d9d_tpu_torch.nn.init import variance_scaling_uniform_
 from d9d_tpu_torch.nn.linear import Projection
 from d9d_tpu_torch.nn.logical_axes import (
@@ -225,18 +236,144 @@ def collect_tokens_per_expert(module: nn.Module):
             layer._stats_sink = None
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class LegacyPieces:
+    """Where the legacy flow's rows live on the mesh. The JAX package
+    flattens the global ``[B, T]`` batch (row ``b·T + t``) and cuts it over
+    the ep axes into ``W`` pieces, every ep group computing all of them.
+    Here each rank holds its own ``[b_loc, t_loc]`` block, and of it the
+    ``1/dup`` sub-block it dispatches in the token flow; ``group`` is the
+    group of the ranks whose sub-blocks together are the global batch
+    (the token-carrying axes and the ep axes), ``members[i]`` the
+    coordinates of its rank ``i`` on ``axes`` (mesh order), and ``sizes``
+    every mesh axis's size."""
+
+    group: object
+    rank: int
+    axes: tuple[str, ...]
+    members: np.ndarray
+    sizes: dict
+    batch_axes: tuple[str, ...]
+    seq_axes: tuple[str, ...]
+    ep_axes: tuple[str, ...]
+    dup_axes: tuple[str, ...]
+    _routes: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def _index(self, coords, axes) -> np.ndarray:
+        """Members' row-major index over ``axes`` (an axis not in
+        ``self.axes`` has size 1 here)."""
+        idx = np.zeros(len(coords), np.int64)
+        for a in axes:
+            col = (coords[:, self.axes.index(a)] if a in self.axes
+                   else np.zeros(len(coords), np.int64))
+            idx = idx * self.sizes[a] + col
+        return idx
+
+    def routes(self, b_loc: int, t_loc: int, device) -> "LegacyRoutes | None":
+        """The two exchanges of a call on ``[b_loc, t_loc]`` blocks (made
+        once a shape and device); ``None`` where every rank's sub-block is
+        its piece (no exchange: the token flow)."""
+        key = (b_loc, t_loc, str(device))
+        if key not in self._routes:
+            self._routes[key] = self._make_routes(b_loc, t_loc, device)
+        return self._routes[key]
+
+    def _make_routes(self, b_loc, t_loc, device) -> "LegacyRoutes | None":
+        m = self.members
+        prod = lambda axes: math.prod(self.sizes[a] for a in axes)  # noqa: E731
+        seq = t_loc * prod(self.seq_axes)
+        world = prod(self.ep_axes)
+        n_full = b_loc * t_loc
+        n_sub = n_full // prod(self.dup_axes)
+        n_global = n_full * prod(self.batch_axes) * prod(self.seq_axes)
+        n_piece = n_global // world
+        if n_piece * world != n_global:
+            raise ValueError(f"legacy EP flow: {n_global} tokens do not cut "
+                             f"into {world} pieces")
+        bc = self._index(m, self.batch_axes)
+        sc = self._index(m, self.seq_axes)
+        dc = self._index(m, self.dup_axes)
+        piece = self._index(m, self.ep_axes)
+        others = [a for a in self.axes if a not in self.ep_axes]
+        replica = self._index(m, others)
+        j = np.arange(n_sub)[None] + (dc * n_sub)[:, None]
+        rows = (((bc * b_loc)[:, None] + j // t_loc) * seq
+                + (sc * t_loc)[:, None] + j % t_loc)  # [members, n_sub]
+        if np.array_equal(rows, piece[:, None] * n_piece
+                          + np.arange(n_piece)[None]):
+            return None
+        of = rows // n_piece
+        me = self.rank
+        # out: my sub-block's rows to every member holding their piece
+        send = [np.flatnonzero(of[me] == piece[p]) for p in range(len(m))]
+        recv_rows = [rows[s][of[s] == piece[me]] for s in range(len(m))]
+        got = np.concatenate(recv_rows)
+        order = np.argsort(got, kind="stable")
+        if not np.array_equal(got[order],
+                              piece[me] * n_piece + np.arange(n_piece)):
+            raise AssertionError("legacy EP flow: the pieces do not tile "
+                                 "the global batch")
+        # home: the results of my sub-block from my own ep group's members
+        mates = [p for p in range(len(m)) if replica[p] == replica[me]]
+        back = [rows[q][of[q] == piece[me]] - piece[me] * n_piece
+                if replica[q] == replica[me] else np.zeros(0, np.int64)
+                for q in range(len(m))]
+        came = np.concatenate([np.flatnonzero(of[me] == piece[p])
+                               for p in mates])
+        place = np.empty(n_sub, np.int64)
+        place[came] = np.arange(n_sub)
+
+        def tensor(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
+                device)
+
+        out_split = [int(len(s)) for s in send]
+        in_split = [int(len(r)) for r in recv_rows]
+        home_in = [int((of[me] == piece[p]).sum())
+                   if replica[p] == replica[me] else 0
+                   for p in range(len(m))]
+        return LegacyRoutes(
+            send=tensor(np.concatenate(send)), send_splits=out_split,
+            recv_splits=in_split, order=tensor(order),
+            back=tensor(np.concatenate(back)),
+            back_splits=[int(len(b)) for b in back], home_splits=home_in,
+            home_order=tensor(place))
+
+
+@dataclasses.dataclass(frozen=True)
+class LegacyRoutes:
+    """One call's exchanges (``core/collectives.py`` ``exchange_rows``):
+    the sub-block's rows out to the members holding their pieces
+    (``send``, ``send_splits``, ``recv_splits``, ``order``: the received
+    rows in piece order), and each piece's results back to the members of
+    this ep group whose sub-blocks hold them (``back``, ``back_splits``,
+    ``home_splits``, ``home_order``: the received results in sub-block
+    order)."""
+
+    send: torch.Tensor
+    send_splits: list
+    recv_splits: list
+    order: torch.Tensor
+    back: torch.Tensor
+    back_splits: list
+    home_splits: list
+    home_order: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class ExpertParallelGroups:
     """What the EP path of a layer needs of the mesh: the ep ``group``
-    (``None``: one rank), this rank's index on it and its size; and the
+    (``None``: one rank), this rank's index on it and its size; the
     ``dup`` group over the ep axes that carry no tokens upstream (``tp``,
     ``cp_r``: their ranks hold the same tokens, and each takes its slice of
-    them; ``None`` when there are none)."""
+    them; ``None`` when there are none); and, for the legacy flow on a
+    mesh where JAX's pieces are not the ranks' own blocks, ``legacy``."""
 
     group: object = None
     rank: int = 0
     world: int = 1
     dup_group: object = None
+    legacy: "LegacyPieces | None" = None
 
 
 _ONE_RANK = ExpertParallelGroups()
@@ -250,9 +387,11 @@ def bind_expert_parallel(module: nn.Module, ctx: MeshContext) -> None:
     dispatches its own ``[b_loc, t_loc]`` block; the ep axes outside the
     token axes subdivide it (``dup``). Legacy flow (``token_axes=None``):
     the JAX package flattens the global batch and cuts it over the ep
-    axes; that is each rank's own block (then subdivided the same way)
-    when the sequence is whole (``cp_s = 1``) and every batch axis larger
-    than 1 is an ep axis. Any other legacy mesh raises (ROADMAP A3.4)."""
+    axes, every ep group computing every piece; where that is not each
+    rank's own (sub-)block (``cp_shard > 1``, or a batch axis larger than
+    1 outside the ep axes) the layer regroups the rows of the pieces
+    before its dispatch and sends the results home after it
+    (:class:`LegacyPieces`), so the capacity sees JAX's pieces."""
     for name, layer in module.named_modules():
         if not isinstance(layer, MoELayer) or layer.ep_axes is None:
             continue
@@ -262,23 +401,39 @@ def bind_expert_parallel(module: nn.Module, ctx: MeshContext) -> None:
             raise ValueError(f"{name}: num_experts {layer.num_experts} not "
                              f"divisible by ep size {world}")
         if layer.token_axes is None:
-            whole = [a for a in ctx.batch_axes
-                     if ctx.axis_size(a) > 1 and a not in axes]
-            if ctx.axis_size(AXIS_CP_SHARD) > 1 or whole:
-                raise NotImplementedError(
-                    f"{name}: the legacy EP flow (token_axes=None) on a mesh "
-                    f"with cp_shard > 1 or batch axes {whole} outside the ep "
-                    f"axes {axes} is not ported (ROADMAP A3.4); pass "
-                    f"token_axes=(ctx.batch_axes, ctx.sequence_axes)")
-            carrying = set(ctx.batch_axes)
+            batch, seq = tuple(ctx.batch_axes), tuple(ctx.sequence_axes)
         else:
-            carrying = {a for part in layer.token_axes for a in part}
+            batch, seq = layer.token_axes
+        carrying = set(batch) | set(seq)
         dup = tuple(a for a in axes
                     if a not in carrying and ctx.axis_size(a) > 1)
+        legacy = None
+        if layer.token_axes is None and ctx.mesh is not None:
+            legacy = _legacy_pieces(ctx, batch, seq, axes, dup)
         layer._ep = ExpertParallelGroups(
             group=ctx.group(*axes) if world > 1 else None,
             rank=ctx.coordinate(*axes), world=world,
-            dup_group=ctx.group(*dup) if dup else None)
+            dup_group=ctx.group(*dup) if dup else None, legacy=legacy)
+
+
+def _legacy_pieces(ctx, batch, seq, ep_axes, dup) -> "LegacyPieces | None":
+    over = set(batch) | set(seq) | set(ep_axes)
+    axes = tuple(a for a in MESH_AXIS_NAMES
+                 if a in over and ctx.axis_size(a) > 1)
+    if not axes:
+        return None
+    sizes = {a: ctx.axis_size(a) for a in MESH_AXIS_NAMES}
+    members = np.array(list(itertools.product(
+        *[range(sizes[a]) for a in axes])), np.int64)
+    group = ctx.group(*axes)
+    rank = ctx.coordinate(*axes)
+    if dist.get_rank(group) != rank:
+        raise AssertionError(f"group over {axes}: rank {dist.get_rank(group)}"
+                             f" at coordinate {rank}")
+    return LegacyPieces(group=group, rank=rank, axes=axes, members=members,
+                        sizes=sizes, batch_axes=tuple(batch),
+                        seq_axes=tuple(seq), ep_axes=tuple(ep_axes),
+                        dup_axes=dup)
 
 
 def expert_parallel_layers(module: nn.Module) -> list[str]:
@@ -439,6 +594,13 @@ class MoELayer(nn.Module):
             x = split_to_group(x, ep.dup_group)
             probs = split_to_group(probs, ep.dup_group)
             ids = split_to_group(ids, ep.dup_group)  # no gradient: a slice
+        routes = (None if ep.legacy is None
+                  else ep.legacy.routes(shape[0], shape[1], x.device))
+        if routes is not None:
+            # JAX's piece of the flattened global batch, in its row order
+            x, probs, ids = (exchange_rows(
+                t, routes.send, routes.send_splits, routes.recv_splits,
+                routes.order, ep.legacy.group) for t in (x, probs, ids))
         e_loc = self.num_experts // ep.world
         experts = self.grouped_experts
         weights = [_local(w) for w in (experts.gate_proj, experts.up_proj,
@@ -452,6 +614,10 @@ class MoELayer(nn.Module):
             x, ids, probs, expert_ffn(weights, self.dtype, self.moe_ffn),
             group=ep.group, ep_rank=ep.rank, e_loc=e_loc,
             capacity_factor=self.ep_capacity_factor)
+        if routes is not None:
+            out = exchange_rows(out, routes.back, routes.back_splits,
+                                routes.home_splits, routes.home_order,
+                                ep.legacy.group)
         out = gather_from_group(out, ep.dup_group)
         return out.reshape(shape).to(hidden.dtype)
 
@@ -459,6 +625,8 @@ class MoELayer(nn.Module):
 __all__ = [
     "ExpertParallelGroups",
     "GroupedSwiGLU",
+    "LegacyPieces",
+    "LegacyRoutes",
     "MoELayer",
     "SharedExpertParameters",
     "SharedSwiGLU",

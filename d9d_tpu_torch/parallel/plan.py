@@ -22,8 +22,10 @@ vocab tables then cut over ``(tp, dp_s, cp_s)``, tp major;
    a dim over ``tp`` (the vocab tables, the attention sinks) becomes a
    ``DTensor`` cut on that dim, and its module computes on its local rows
    (``core/collectives.py``). ``fused_qkv`` attention raises, as in JAX;
-2. FSDP2: ``fully_shard`` on each decoder layer (``layers.<i>``) and on
-   the root, over the ``fsdp_axes`` sub-mesh, or a 2-D ``(dp_r, dp_s x
+2. FSDP2: ``fully_shard`` on each decoder layer (``layers.<i>``), on
+   each vocab table's module (the embedding and the LM head, so that one
+   table at a time is gathered, never both with the root) and on the
+   root, over the ``fsdp_axes`` sub-mesh, or a 2-D ``(dp_r, dp_s x
    cp_s)`` mesh when ``dp_r > 1`` (HSDP). Each parameter is sharded on the
    dim its rule maps to the fsdp axes (``shard_placement_fn``): a
    tp-cut projection on its other dim (a block), a vocab table on the dim
@@ -296,10 +298,23 @@ def apply_plan(module: nn.Module, ctx: MeshContext,
     kw = dict(mesh=mesh, ignored_params=ignored,
               shard_placement_fn=lambda p: Shard(by_param[p]),
               mp_policy=MixedPrecisionPolicy(reduce_dtype=torch.float32))
+    from torch.distributed.fsdp import register_fsdp_forward_method
+
+    from d9d_tpu_torch.nn.embedding import TokenEmbedding
+    from d9d_tpu_torch.nn.heads import LanguageModellingHead
+
+    tables = (TokenEmbedding, LanguageModellingHead)
     wrapped = [m for name, m in module.named_modules()
-               if _LAYER.fullmatch(name)]
+               if _LAYER.fullmatch(name) or (
+                   name and isinstance(m, tables)
+                   and any(p not in ignored for p in m.parameters()))]
     for m in wrapped:
-        fully_shard(m, **kw)
+        head = isinstance(m, LanguageModellingHead)
+        # the head's backward follows its forward at once: keep its table
+        # gathered in between rather than gather it twice
+        fully_shard(m, **kw, reshard_after_forward=not head)
+        if head:
+            register_fsdp_forward_method(m, "logits")
     fully_shard(module, **kw)
     for m in wrapped + [module]:
         m.set_gradient_divide_factor(1.0)
@@ -308,11 +323,14 @@ def apply_plan(module: nn.Module, ctx: MeshContext,
 
 
 def fsdp_modules(module: nn.Module) -> list[nn.Module]:
-    """The modules of ``module`` that ``fully_shard`` wrapped (empty for a
-    module no plan sharded)."""
-    from torch.distributed.fsdp import FSDPModule
+    """The modules of ``module`` that ``fully_shard`` wrapped and that
+    hold sharded parameters of their own (empty for a module no plan
+    sharded; the root holds none when every table and layer is a unit of
+    its own)."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
 
-    return [m for m in module.modules() if isinstance(m, FSDPModule)]
+    return [m for m in module.modules() if isinstance(m, FSDPModule)
+            and fully_shard.state(m)._fsdp_param_group is not None]
 
 
 def fsdp_params(module: nn.Module) -> list[nn.Parameter]:

@@ -14,7 +14,11 @@ and grad norm within rtol 1e-4 and final parameters within rtol/atol 1e-3,
 as ``tests/test_torch_train.py`` holds the one-device trainers (sums in
 other orders, carried from step to step by Adam's normalized update). Both
 ranks' histories and parameters are equal bit for bit: every rank applies
-the same all-reduced sums.
+the same all-reduced sums. The workers then train ``Qwen3MoeConfig.tiny``
+with expert parallelism over ``cp_s`` in the legacy flow (each rank's
+piece of JAX's flattened global batch holds rows of both ranks) against
+the port's one-process MoE run, loss, grad norm and load fraction within
+the same rtol.
 """
 import json
 
@@ -48,7 +52,12 @@ from d9d_tpu_torch.loop import (
     TrainerConfig,
 )
 from d9d_tpu_torch.model_state.from_jax import load_jax_params
-from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
+from d9d_tpu_torch.models.qwen3 import (
+    Qwen3DenseCausalLM,
+    Qwen3DenseConfig,
+    Qwen3MoeCausalLM,
+    Qwen3MoeConfig,
+)
 from d9d_tpu_torch.nn.sdpa import SdpaFlashConfig
 from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
 from test_torch_ring import scoped_jax_mesh, spawn  # noqa: F401 (autouse)
@@ -64,6 +73,7 @@ MODEL = dict(vocab_ranges=(("default", VOCAB),), hidden_size=32, num_layers=2,
 TRAIN = dict(global_batch_size=GBS, microbatch_size=MBS, seq_len=SEQ,
              total_steps=STEPS, log_every=1, gc_every_steps=None)
 KEYS = ("loss", "grad_norm", "loss_weight", "task/tokens")
+MOE_KEYS = ("loss", "grad_norm", "task/moe_load_max_frac")
 
 
 def _batches():
@@ -132,10 +142,11 @@ class Model(ModelProvider):
 
 class MoeModel(ModelProvider):
     # expert parallelism over cp_s in the legacy flow (token_axes=None):
-    # JAX flattens the global batch, which is no rank's own block here
+    # JAX flattens the global batch, which is no rank's own block here, so
+    # the layers regroup its pieces (nn/moe.py LegacyPieces)
     def build_module(self, ctx):
         return Qwen3MoeCausalLM(
-            Qwen3MoeConfig.tiny(32, ep_axes=ctx.sequence_axes),
+            Qwen3MoeConfig.tiny(32, ep_axes=ctx.ep_shard_axes),
             build_sdpa_backend(SdpaRingConfig(head_axes=()), ctx=ctx),
             dtype=torch.float32, device=ctx.device, seed=0)
 
@@ -171,12 +182,15 @@ for name, p in trainer.module.named_parameters():
 out["skipped_blocks"] = np.int64(ring_attention.skipped_blocks)
 out["plain_fwd"] = np.int64(flash_attention.plain_calls)
 out["eval_loss"] = np.float64(trainer.loss_on_batch(batches[0]))
-try:
-    Trainer(ctx=ctx, config=TrainerConfig(**spec["train"]),
-            model_provider=MoeModel(), dataset_provider=Data(),
-            task=CausalLMTask(), optimizer_provider=AdamWProvider())
-except NotImplementedError as e:
-    out["moe_refused"] = np.bool_("ROADMAP A3.4" in str(e))
+moe = Trainer(ctx=MeshParameters(cp_shard=world, ep_shard=world).build(
+                  ["cpu"] * world),
+              config=TrainerConfig(**spec["train"]), model_provider=MoeModel(),
+              dataset_provider=Data(), task=CausalLMTask(),
+              optimizer_provider=AdamWProvider(weight_decay=spec["wd"]),
+              learning_rate=spec["lr"])
+moe_hist = moe.train()
+for key in spec["moe_keys"]:
+    out[f"moe/{key}"] = np.array([h[key] for h in moe_hist])
 try:
     Trainer(ctx=ctx, config=TrainerConfig(**spec["train"]),
             model_provider=LocalAttentionModel(), dataset_provider=Data(),
@@ -235,6 +249,12 @@ class _TModel(ModelProvider):
         return model
 
 
+class _MoeOneProcess(ModelProvider):
+    def build_module(self, ctx):
+        return Qwen3MoeCausalLM(Qwen3MoeConfig.tiny(32), dtype=torch.float32,
+                                device=ctx.device, seed=0)
+
+
 def _jax_cp_trainer(batches):
     ctx = JMeshParameters(cp_shard=2).build(jax.devices()[:2])
     ring = j_build_sdpa_backend(JSdpaRingConfig(
@@ -259,7 +279,8 @@ def test_cp_trainer_matches_jax_cp_trainer_and_one_process(tmp_path):
         arrays[f"ids{i}"], arrays[f"mask{i}"] = b["input_ids"], b["loss_mask"]
     np.savez(f"{src}.npz", **arrays)
     (tmp_path / "run.json").write_text(json.dumps(dict(
-        model=MODEL, train=TRAIN, steps=STEPS, lr=LR, wd=WD, keys=KEYS)))
+        model=MODEL, train=TRAIN, steps=STEPS, lr=LR, wd=WD, keys=KEYS,
+        moe_keys=MOE_KEYS)))
     wait = spawn(tmp_path, WORKER, 2, src, tmp_path / "out")
 
     jh = jtr.train()  # meanwhile: the JAX cp run, then the port on one process
@@ -269,6 +290,12 @@ def test_cp_trainer_matches_jax_cp_trainer_and_one_process(tmp_path):
                   optimizer_provider=AdamWProvider(weight_decay=WD),
                   learning_rate=LR)
     th = ttr.train()
+    moe_one = Trainer(ctx=MeshParameters().build(["cpu"]),
+                      config=TrainerConfig(**TRAIN),
+                      model_provider=_MoeOneProcess(),
+                      dataset_provider=_TData(batches), task=CausalLMTask(),
+                      optimizer_provider=AdamWProvider(weight_decay=WD),
+                      learning_rate=LR).train()
     wait()
     ranks = [np.load(tmp_path / f"out{r}.npz") for r in range(2)]
 
@@ -307,9 +334,16 @@ def test_cp_trainer_matches_jax_cp_trainer_and_one_process(tmp_path):
     # loss_on_batch after training: the global weighted loss on every rank
     assert float(r0["eval_loss"]) == pytest.approx(
         ttr.loss_on_batch(batches[0]), rel=1e-4)
-    for flag in ("no_group_refused", "mismatch_refused", "moe_refused",
+    for flag in ("no_group_refused", "mismatch_refused",
                  "local_attention_refused"):
         assert bool(r0[flag]), flag
+    # the legacy EP flow over cp_s (each rank's piece of JAX's flattened
+    # batch is rows of both ranks) trains as the one-process MoE model
+    for key in MOE_KEYS:
+        np.testing.assert_array_equal(r0[f"moe/{key}"], r1[f"moe/{key}"])
+        np.testing.assert_allclose(r0[f"moe/{key}"],
+                                   [h[key] for h in moe_one], **STEP_TOL,
+                                   err_msg=f"legacy EP over cp_s: {key}")
 
 
 def test_cp_mesh_refusals():
@@ -319,8 +353,8 @@ def test_cp_mesh_refusals():
             MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         MeshParameters(cp_shard=2, pp=2).build(["cpu"] * 4)
-    # an ep mesh builds (over a process group); the legacy EP flow on a cp
-    # mesh raises where the layers are bound (ROADMAP A3.4, the worker)
+    # an ep mesh builds (over a process group); the legacy EP flow trains
+    # on a cp mesh (the worker)
     with pytest.raises(RuntimeError, match="needs a process group"):
         MeshParameters(cp_shard=2, ep_shard=2).build(["cpu"] * 2)
     # the ring runs on each rank's head slice; heads that tp does not

@@ -32,8 +32,10 @@ one-process build bit for bit.
 
 (iii) Local experts on a dp mesh: ``dp_shard 2`` under ``fsdp_plan``
 (``ep_axes=None``) against the port's one-process ``Trainer``; and the
-legacy flow (``token_axes=None``) at ``dp_shard 2, ep_shard 2``, where it
-is ported, against the token-layout flow.
+legacy flow (``token_axes=None``) at ``dp_shard 2, ep_shard 2``, where
+JAX's pieces are the ranks' own blocks (no exchange), against the
+token-layout flow; the legacy flow elsewhere is
+``tests/test_torch_example_mesh.py``'s.
 
 One step a run: JAX's trainer compiles its step twice (its first step
 takes a replicated optimizer state, the second a sharded one), and its
