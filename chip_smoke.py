@@ -55,7 +55,8 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    for each expert-FFN kernel; one ``StochasticAdamW`` step on the card
    against the CPU (bf16 parameters, fp32 moments and gradients), then 3
    ``Trainer`` steps of narrow dense and MoE models with bf16 parameters;
-5. full width, serving — Qwen3-8B (36 layers, random seeded bf16 weights):
+5. full width, serving — Qwen3-8B (18 of its 36 layers, random seeded
+   bf16 weights):
    ``generate`` on a ragged batch with chunked prefill, then a
    ``ContinuousBatcher`` that drains 12 requests; then paged serving on the
    same weights: 12 requests (prompts 16–384 tokens, 6 sharing a 256-token
@@ -63,7 +64,7 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    ``ContinuousBatcher(page_size=16, prefix_cache=True)`` with bf16 and with
    int8 pools — tokens/s, prefix hits, pages in use, KV bytes per request,
    and the share of greedy tokens equal to the contiguous batcher's; then
-   Qwen3-30B-A3B at full width and all 48 layers (random seeded bf16
+   Qwen3-30B-A3B at full width and 24 of its 48 layers (random seeded bf16
    weights drawn on the card): ``generate`` on a ragged batch with chunked
    prefill once per expert-FFN kernel (aligned and gather tokens equal),
    12 shorter requests through the contiguous and paged (bf16, int8)
@@ -111,7 +112,22 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    and parameter piece by piece; then ``dp_shard 2, ep_shard 2`` at 2 of
    48 layers (bf16 compute, one row a rank): ms per step, the
    all-to-alls' host ms and bytes, readbacks, dropped pairs, rows
-   received per layer call, B5 launches and peak memory per rank.
+   received per layer call, B5 launches and peak memory per rank;
+13. the example's mesh — 8 child processes share the card over gloo on
+   ``example/qwen3_moe/pretrain.json``'s mesh at Qwen3-30B-A3B widths (1
+   layer): fp32 legacy-flow steps against the one-process trainer, the HF
+   export and its one-process reload, a timed bf16 step;
+14. the example end to end — ``pretrain.json`` itself through the twin of
+   ``example/qwen3_moe/pretrain.py`` (``d9d_tpu_torch/example``), its own
+   launcher starting 8 ranks that share the card over gloo: all 40 steps
+   with checkpoints at 20 and 40, the JSONL tracker and the export, into a
+   temp directory; then ``save_40`` is deleted and the config launched
+   again, and the resumed run's JSONL losses and export must equal the
+   first run's bit for bit. Then Qwen3-30B-A3B widths at 1 layer through
+   the twin in this process: 2 steps saving at 2, a resume to 4 that
+   rotates ``save_2`` away, and 4 straight steps, whose parameters must
+   equal the resumed run's bit for bit; the checkpoint's bytes, the save's
+   blocking and waiting seconds, the restore and GB/s.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -317,8 +333,9 @@ def check_flash_fwd(gen):
     hq, hkv, d = 32, 8, 128
     cases = []
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_d32 = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
-    def compare(tag, dtype, b, t, hkv=hkv, **kw):
+    def compare(tag, dtype, b, t, hkv=hkv, hq=hq, d=d, **kw):
         q = _rand((b, t, hq, d), dtype, gen)
         k = _rand((b, t, hkv, d), dtype, gen)
         v = _rand((b, t, hkv, d), dtype, gen)
@@ -341,6 +358,8 @@ def check_flash_fwd(gen):
                 f"flash_fwd {tag} {dtype}: max_abs_err {err} uses {use} of "
                 f"its tolerance, lse err {lerr} (limit {LSE_TOL})")
         worst[dtype] = max(worst[dtype], err)
+        if d == 32:
+            worst_d32[dtype] = max(worst_d32[dtype], err)
         cases.append({"case": tag, "dtype": str(dtype).split(".")[-1],
                       "shape": [b, t, hq, hkv, d], "max_abs_err": err,
                       "tolerance_use": use,
@@ -365,6 +384,13 @@ def check_flash_fwd(gen):
         compare("sinks", dtype, 2, 2048,
                 sinks=torch.randn(hq, device="cuda", generator=gen))
         compare("t1000", dtype, 2, 1000)  # T not a multiple of any tile
+        # head_dim 32 (example/qwen3_moe/pretrain.json): the example's
+        # shape on each of its 8 ranks (2 rows, tp 2 leaves 4/2 heads), and
+        # a long causal and a windowed case at its heads
+        compare("d32_example", dtype, 2, 128, hq=4, hkv=2, d=32)
+        compare("d32_causal", dtype, 2, 2048, hq=8, hkv=4, d=32)
+        compare("d32_window_t1000", dtype, 2, 1000, hq=8, hkv=4, d=32,
+                window_size=256)
     # the shape generate's first prefill chunk gives the kernel: batch 4,
     # chunk 512, left-padded rows as segments
     pads = [0, 324, 124, 511]
@@ -424,6 +450,8 @@ def check_flash_fwd(gen):
         "replaces": "d9d_tpu/ops/attention/pallas_flash.py:437",
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_fp32": worst[torch.float32],
+        "max_abs_err_d32": worst_d32[torch.bfloat16],
+        "max_abs_err_d32_fp32": worst_d32[torch.float32],
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(by_ops, by_bytes),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
@@ -1048,6 +1076,7 @@ def check_flash_bwd(gen):
     worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
              for n in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")}
     worst_use = {n: 0.0 for n in worst}
+    worst_d32 = {n: {torch.float32: 0.0, torch.bfloat16: 0.0} for n in worst}
     repeats = [0]  # cases whose two fused runs were compared bit for bit
 
     def segs(b, t, pads):
@@ -1086,6 +1115,9 @@ def check_flash_bwd(gen):
                     f"{name} {tag} {dtype}: max_abs_err {errs} uses {uses} "
                     f"of its tolerance (finite: {finite})")
             worst[name][dtype] = max(worst[name][dtype], max(errs))
+            if d_ == 32:
+                worst_d32[name][dtype] = max(worst_d32[name][dtype],
+                                             max(errs))
             worst_use[name] = max(worst_use[name], max(uses))
             row[name] = {"max_abs_err": max(errs), "tolerance_use": max(uses)}
         pairs, work = _bwd_work(q, k, kw, dtype)
@@ -1109,6 +1141,12 @@ def check_flash_bwd(gen):
         compare("segments_padding", dtype, 2, 2048, q_segments=s, kv_segments=s)
         compare("t1000", dtype, 2, 1000)
         compare("d64", dtype, 2, 2048, d_=64)
+        # head_dim 32 (example/qwen3_moe/pretrain.json): each of its 8
+        # ranks' shape, and a long causal and a windowed case at its heads
+        compare("d32_example", dtype, 2, 128, hq_=4, hkv_=2, d_=32)
+        compare("d32_causal", dtype, 2, 2048, hq_=8, hkv_=4, d_=32)
+        compare("d32_window_t1000", dtype, 2, 1000, hq_=8, hkv_=4, d_=32,
+                window_size=256)
         # non-causal, query segments that match no key at a few positions:
         # those rows see no key (forward zeros, lse = -1e30) and the
         # ungated backward gives them p = 1 on every key, as the TPU
@@ -1154,6 +1192,8 @@ def check_flash_bwd(gen):
             "replaces": f"d9d_tpu/ops/attention/pallas_flash.py:{src_line}",
             "max_abs_err": worst[name][torch.bfloat16],
             "max_abs_err_fp32": worst[name][torch.float32],
+            "max_abs_err_d32": worst_d32[name][torch.bfloat16],
+            "max_abs_err_d32_fp32": worst_d32[name][torch.float32],
             "tolerance_use": worst_use[name],
             "ms": ms[name], "plain_ms": plain_ms,
             "bound_ms": work[name]["bound_ms"],
@@ -2606,13 +2646,22 @@ def phase_small_e2e_moe():
 # phase 5: full width
 
 
+# the serving phases' depth: half of each model's, to keep the script in
+# its time beside phase 14 (per-step serving numbers at this depth are not
+# comparable to full-depth runs)
+SERVE_DENSE_LAYERS = 18  # of Qwen3-8B's 36
+SERVE_MOE_LAYERS = 24    # of Qwen3-30B-A3B's 48
+
+
 def phase_full_width():
+    import dataclasses
     import random
 
     from d9d_tpu_torch.loop import ContinuousBatcher, generate
     from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
 
-    cfg = Qwen3DenseConfig.qwen3_8b()
+    cfg = dataclasses.replace(Qwen3DenseConfig.qwen3_8b(),
+                              num_layers=SERVE_DENSE_LAYERS)
     layers = cfg.num_layers
     dml = 4096
     t0 = time.perf_counter()
@@ -2621,7 +2670,8 @@ def phase_full_width():
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     say(phase="full_width", model="qwen3_8b", layers=layers,
-        params=n_params, init_seconds=round(time.perf_counter() - t0, 2),
+        layers_reduced_from=36, params=n_params,
+        init_seconds=round(time.perf_counter() - t0, 2),
         weight_bytes=sum(p.numel() * p.element_size()
                          for p in model.parameters()))
     torch.cuda.reset_peak_memory_stats()
@@ -2746,7 +2796,8 @@ def paged_requests(vocab, seed=9, unrelated=(16, 256), late_tail=(16, 128),
 
 
 def phase_full_width_paged(model, phase="full_width_paged", moe_kernel=None):
-    """A full-width model (Qwen3-8B at 36 layers; Qwen3-30B-A3B at 48 with
+    """A full-width model (Qwen3-8B at SERVE_DENSE_LAYERS; Qwen3-30B-A3B at
+    SERVE_MOE_LAYERS with
     ``moe_kernel``, the wrapper its MoE layers run, on the shorter
     ``MOE_PAGED_TRAFFIC``) through the paged ContinuousBatcher (page 16,
     prefix cache on, default pool: every slot at full length + the garbage
@@ -2857,16 +2908,20 @@ def phase_full_width_paged(model, phase="full_width_paged", moe_kernel=None):
 
 
 def phase_full_width_moe():
-    """Qwen3-30B-A3B at full width and all 48 layers, random bf16 weights
+    """Qwen3-30B-A3B at full width and SERVE_MOE_LAYERS of its 48 layers,
+    random bf16 weights
     drawn on the card (an fp32 copy would need 122 GB): ``generate`` on a
     ragged batch of 4 with chunked prefill once per moe_ffn value (B5 and
     B6 greedy tokens equal; B7's share of equal tokens read), then the
     gather+combine kernel through the contiguous batcher and the paged one
     with bf16 and int8 pools, and a profiled decode step."""
+    import dataclasses
+
     from d9d_tpu_torch.loop import generate
     from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM, Qwen3MoeConfig
 
-    cfg = Qwen3MoeConfig.qwen3_30b_a3b()
+    cfg = dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(),
+                              num_layers=SERVE_MOE_LAYERS)
     layers = cfg.num_layers
     t0 = time.perf_counter()
     model = Qwen3MoeCausalLM(cfg, decode_max_length=4096,
@@ -2876,6 +2931,7 @@ def phase_full_width_moe():
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     say(phase="full_width_moe", model="qwen3_30b_a3b", layers=layers,
+        layers_reduced_from=48,
         params=sum(p.numel() for p in model.parameters()),
         init_seconds=round(time.perf_counter() - t0, 2),
         weight_bytes=weight_bytes)
@@ -5617,20 +5673,414 @@ def phase_mesh_train(backend="gloo", ranks=MESH_RANKS,
         shutil.rmtree(export_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the example end to end (the twin of example/qwen3_moe/pretrain.py)
+
+EXAMPLE_CONFIG = "example/qwen3_moe/pretrain.json"
+EXAMPLE_RANKS = 8
+EXAMPLE_DROP = 40      # the newest checkpoint, deleted before the second launch
+EXAMPLE_RESUMED = 20   # the step the second launch resumes from
+EXAMPLE_FULL_STEPS = 4
+EXAMPLE_FULL_SEQ = 2048
+
+
+def _example_observe(out_dir, event, trainer, history):
+    """The twin's observe hook in each rank of phase 14 (``pretrain.py``
+    ``run_rank``): every count zeroed once the trainer is built, just before
+    its run; after the run and the export, the counts, the history and the
+    checkpointer's numbers as JSON in ``out_dir/rank{r}.json``."""
+    import json as _json
+    import os
+
+    if event == "built":
+        _ep_reset_counters()
+        _example_observe.built_at = time.time()
+        return
+    ck = trainer.checkpointer
+    c = _ep_counters()
+    c["eager_calls"] = read_counters(trainer.module)["eager_calls"]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{trainer.ctx.process_index}.json"),
+              "w") as f:
+        _json.dump({
+            "counters": c,
+            "steps": [{"step": h["step"], "loss": h["loss"],
+                       "grad_norm": h["grad_norm"], "wall_s": h["wall_s"]}
+                      for h in history],
+            "checkpoint": None if ck is None else {
+                "saves": ck.saves, "save_seconds": ck.save_seconds,
+                "wait_seconds": ck.wait_seconds,
+                "restore_seconds": ck.restore_seconds,
+                "validate_seconds": ck.validate_seconds,
+                "fallbacks": ck.checkpoint_fallback,
+                "unverified_restores": ck.unverified_restore,
+                "reshard_restores": ck.reshard_restores},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "built_at": _example_observe.built_at, "done_at": time.time(),
+        }, f)
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _jsonl_losses(lines):
+    return {r["step"]: r["value"] for r in map(json.loads, lines)
+            if r.get("name") == "train/loss"}
+
+
+def _example_launch(pretrain, raw, backend, out_dir):
+    """One launch of the twin on ``raw`` through its launcher, every rank
+    reporting into ``out_dir``; returns (seconds, per-rank reports)."""
+    import functools
+    import os
+
+    t0, started = time.perf_counter(), time.time()
+    pretrain.launch(raw, device="cuda", backend=backend,
+                    observe=functools.partial(_example_observe, out_dir))
+    seconds = time.perf_counter() - t0
+    reports = [json.load(open(os.path.join(out_dir, f)))
+               for f in sorted(os.listdir(out_dir),
+                               key=lambda n: int(n[4:-5]))]
+    for o in reports:
+        # seconds from the launch to the trainer built, and from the run's
+        # end (export and close included) to the launch's return
+        o["start_seconds"] = o.pop("built_at") - started
+        o["end_seconds"] = started + seconds - o.pop("done_at")
+    return seconds, reports
+
+
+def _example_check_counts(tag, reports, steps, layers, microbatches):
+    """Each rank's launches: B1, B2 (dq, dk/dv) and B5 once per layer and
+    microbatch of each of the ``steps`` it ran (no remat), nothing plain or
+    eager, no fused backward, no other MoE kernel."""
+    launches = {}
+    for r, o in enumerate(reports):
+        c, n = o["counters"], steps * layers * microbatches
+        want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "moe_ffn_aligned": n, "flash_bwd_fused": 0,
+                "moe_ffn_gather": 0, "moe_ffn_gather_combine": 0,
+                "plain_calls": 0, "eager_calls": 0, "ep_dropped_pairs": 0}
+        if n <= 0 or {k: c[k] for k in want} != want:
+            raise AssertionError(
+                f"example {tag} rank {r}: counters {c}, expected {want}")
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                  "moe_ffn_aligned"):
+            launches[k] = launches.get(k, 0) + c[k]
+    return launches
+
+
+def phase_example(backend="gloo", ranks=EXAMPLE_RANKS):
+    """Phase 14a: ``example/qwen3_moe/pretrain.json`` itself through the
+    twin's launcher (``pretrain.launch``), ``ranks`` processes on the card
+    over ``backend``: all its steps with its checkpoints, the JSONL tracker
+    and the export, into a temp directory; then the newest checkpoint is
+    deleted and the config launched again. The resumed run's JSONL losses
+    and its export must equal the first run's bit for bit. Returns the
+    launches of both runs (all ranks)."""
+    import glob
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from d9d_tpu_torch.core import MeshParameters
+    from d9d_tpu_torch.example.qwen3_moe import pretrain
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 14 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    raw = json.load(open(EXAMPLE_CONFIG))
+    world = MeshParameters(**raw["mesh"]).world_size
+    if ranks != world:
+        raise ValueError(f"{EXAMPLE_CONFIG}'s mesh has {world} ranks")
+    tr = raw["trainer"]
+    total, every = tr["total_steps"], tr["checkpoint_every_steps"]
+    if (EXAMPLE_DROP, EXAMPLE_RESUMED) != (total, total - every):
+        raise ValueError(f"{EXAMPLE_CONFIG}: total_steps {total}, "
+                         f"checkpoint_every_steps {every}")
+    layers = raw["model"]["num_layers"]
+    microbatches = tr["global_batch_size"] // tr["microbatch_size"]
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    saved_env = os.environ.get("GLOO_SOCKET_IFNAME")
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    try:
+        # the file's three paths, into the temp directory: nothing is
+        # written into the repository
+        tr["checkpoint_dir"] = os.path.join(tmp, "ckpt")
+        raw["tracker"]["directory"] = os.path.join(tmp, "runs")
+        raw["export_to"] = os.path.join(tmp, "export")
+        first_s, first = _example_launch(pretrain, raw, backend,
+                                         os.path.join(tmp, "first"))
+        (jsonl,) = glob.glob(os.path.join(tmp, "runs", "*.jsonl"))
+        first_lines = open(jsonl).read().splitlines()
+        export = {os.path.basename(f): open(f, "rb").read()
+                  for f in glob.glob(os.path.join(tmp, "export", "*"))}
+        ckpt = tr["checkpoint_dir"]
+        steps_on_disk = sorted(os.listdir(ckpt))
+        ckpt_bytes = _dir_bytes(os.path.join(ckpt, f"save_{EXAMPLE_DROP}"))
+        shutil.rmtree(os.path.join(ckpt, f"save_{EXAMPLE_DROP}"))
+        shutil.rmtree(raw["export_to"])
+        second_s, second = _example_launch(pretrain, raw, backend,
+                                           os.path.join(tmp, "second"))
+        lines = open(jsonl).read().splitlines()
+        if glob.glob(os.path.join(tmp, "runs", "*.jsonl")) != [jsonl]:
+            raise AssertionError("the resumed run wrote another tracker file")
+        want = {s: v for s, v in _jsonl_losses(first_lines).items()
+                if s > EXAMPLE_RESUMED}
+        got = _jsonl_losses(lines[len(first_lines):])
+        export2 = {os.path.basename(f): open(f, "rb").read()
+                   for f in glob.glob(os.path.join(tmp, "export", "*"))}
+        for tag, reports in (("first", first), ("resumed", second)):
+            seen = [[(h["step"], h["loss"], h["grad_norm"]) for h in o["steps"]]
+                    for o in reports]
+            if any(x != seen[0] for x in seen):
+                raise AssertionError(f"example {tag}: ranks disagree: {seen}")
+        losses = {h["step"]: h["loss"] for h in first[0]["steps"]}
+        if not (got == want and sorted(want) == list(
+                range(EXAMPLE_RESUMED + tr["log_every"], total + 1,
+                      tr["log_every"]))):
+            raise AssertionError(
+                f"example: resumed JSONL losses {got} against the first "
+                f"run's {want}")
+        if export2 != export or not export:
+            raise AssertionError("example: the resumed run's export differs "
+                                 "from the first run's")
+        if second[0]["steps"][0]["step"] != EXAMPLE_RESUMED + tr["log_every"]:
+            raise AssertionError(f"example: the second launch did not resume "
+                                 f"at {EXAMPLE_RESUMED}: {second[0]['steps']}")
+        if not all(math.isfinite(v) for v in losses.values()) or not (
+                losses[total] < losses[tr["log_every"]]):
+            raise AssertionError(f"example: losses {losses}")
+        launches = _example_check_counts("first", first, total, layers,
+                                          microbatches)
+        for k, n in _example_check_counts(
+                "resumed", second, total - EXAMPLE_RESUMED, layers,
+                microbatches).items():
+            launches[k] += n
+        c1, c2 = first[0]["checkpoint"], second[0]["checkpoint"]
+        walls = [h["wall_s"] for h in first[0]["steps"]]
+        say(phase="example", entry="pretrain.json", config=EXAMPLE_CONFIG,
+            ranks=ranks, backend=backend, torch=torch.__version__,
+            mesh=raw["mesh"], steps=total, layers=layers,
+            head_dim=raw["model"]["head_dim"], dtype=raw["model"]["dtype"],
+            loss={"step_5": losses[tr["log_every"]], "step_40": losses[total]},
+            losses=losses,
+            ms_per_step=1e3 * walls[-1] / total,
+            ms_per_step_is=(
+                "the first launch's train() wall over its steps, rank 0; "
+                "eight ranks time-share one card over gloo" if backend ==
+                "gloo" else f"one card per rank over {backend}"),
+            launch_seconds={"first": first_s, "resumed": second_s},
+            start_seconds=[o["start_seconds"] for o in first + second],
+            end_seconds=[o["end_seconds"] for o in first + second],
+            checkpoint={
+                "steps_on_disk_after_first": steps_on_disk,
+                "bytes_save_40": ckpt_bytes,
+                "first_run_saves": c1["saves"],
+                "save_blocking_seconds": c1["save_seconds"],
+                "save_wait_seconds": c1["wait_seconds"],
+                "restore_seconds": c2["restore_seconds"],
+                "manifest_validation_seconds": c2["validate_seconds"],
+                "resumed_from": EXAMPLE_RESUMED,
+                "fallbacks": c2["fallbacks"],
+                "unverified_restores": c2["unverified_restores"]},
+            resumed_jsonl_losses_equal=True, resumed_export_equal=True,
+            export_files=sorted(export),
+            export_bytes=sum(map(len, export.values())),
+            peak_memory_gb=[o["peak_memory_bytes"] / 1e9 for o in first],
+            launches_per_rank={k: v // ranks for k, v in launches.items()},
+            launches=launches, seconds=time.perf_counter() - t0)
+        return launches
+    finally:
+        if saved_env is None:
+            os.environ.pop("GLOO_SOCKET_IFNAME", None)
+        else:
+            os.environ["GLOO_SOCKET_IFNAME"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _example_full_config(tmp, steps, checkpoint):
+    """Phase 14b's config in the twin's schema: Qwen3-30B-A3B widths at 1
+    of its 48 layers, bf16 compute over fp32 parameters, AdamW, one rank,
+    two rows of 2048 tokens a step."""
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeConfig
+
+    m = Qwen3MoeConfig.qwen3_30b_a3b()
+    return {
+        "mesh": {},
+        "model": {"vocab_size": m.vocab_size, "hidden_size": m.hidden_size,
+                  "num_layers": 1, "num_heads": m.num_heads,
+                  "num_kv_heads": m.num_kv_heads, "head_dim": m.head_dim,
+                  "moe_intermediate_size": m.moe_intermediate_size,
+                  "num_experts": m.num_experts,
+                  "num_experts_per_tok": m.num_experts_per_tok,
+                  "remat": True, "dtype": "bfloat16"},
+        "data": {"num_documents": 64, "max_len": EXAMPLE_FULL_SEQ + 1,
+                 "seed": 0},
+        "trainer": {"global_batch_size": 2, "microbatch_size": 2,
+                    "seq_len": EXAMPLE_FULL_SEQ, "total_steps": steps,
+                    "log_every": 1, "gc_every_steps": None,
+                    "checkpoint_dir": f"{tmp}/ckpt" if checkpoint else None,
+                    "checkpoint_every_steps": 2, "checkpoints_to_keep": 1},
+        "optimizer": {"type": "adamw", "b2": 0.95, "weight_decay": 0.1},
+        "lr_scheduler": {"type": "constant", "value": 3e-4},
+        "tracker": {"kind": "jsonl", "directory": f"{tmp}/runs"},
+    }
+
+
+def phase_example_full():
+    """Phase 14b: the twin at Qwen3-30B-A3B widths (1 of 48 layers) in
+    this process. Run 1: 2 steps, saving at 2; run 2 resumes to 4, saving
+    at 4, which rotates save_2 away; run 3: 4 steps without checkpoints.
+    Runs 2 and 3 must end with parameters equal bit for bit. Returns the
+    launches of the three runs."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from d9d_tpu_torch.example.qwen3_moe import pretrain
+
+    tmp = tempfile.mkdtemp()
+    runs, params = {}, {}
+
+    def observe(tag, event, trainer, history):
+        if event == "built":
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            runs[tag] = {"t0": time.perf_counter()}
+            if tag == "save":
+                n = sum(p.numel() for p in trainer.module.parameters())
+                # parameters, mu and nu in fp32; a save is written beside
+                # the previous one before rotation removes it
+                need = 2 * 12 * n
+                free = shutil.disk_usage(tmp).free
+                runs["disk"] = {"free_bytes_before_save": free,
+                                "params": n, "needed_bytes": need}
+                if free < need:
+                    raise AssertionError(
+                        f"phase 14b needs {need} bytes of disk in {tmp}, "
+                        f"{free} free")
+            return
+        torch.cuda.synchronize()
+        ck = trainer.checkpointer
+        c = read_counters(trainer.module)
+        runs[tag].update(
+            seconds=time.perf_counter() - runs[tag].pop("t0"),
+            steps=[{"step": h["step"], "loss": h["loss"],
+                    "grad_norm": h["grad_norm"], "wall_s": h["wall_s"]}
+                   for h in history],
+            counters=c, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            checkpoint=None if ck is None else {
+                "saves": ck.saves, "save_seconds": ck.save_seconds,
+                "wait_seconds": ck.wait_seconds,
+                "restore_seconds": ck.restore_seconds,
+                "validate_seconds": ck.validate_seconds,
+                "steps_on_disk": [f for f in sorted(os.listdir(ck.directory))]})
+        if tag in ("resumed", "straight"):
+            params[tag] = {n: p.detach().to("cpu", copy=True)
+                           for n, p in trainer.module.named_parameters()}
+
+    import functools
+
+    t0 = time.perf_counter()
+    try:
+        for tag, steps, ckpt in (("save", 2, True),
+                                 ("resumed", EXAMPLE_FULL_STEPS, True),
+                                 ("straight", EXAMPLE_FULL_STEPS, False)):
+            if tag == "resumed":
+                runs["bytes_save_2"] = _dir_bytes(f"{tmp}/ckpt/save_2")
+            pretrain.launch(_example_full_config(tmp, steps, ckpt),
+                            device="cuda",
+                            observe=functools.partial(observe, tag))
+            gc.collect()
+            torch.cuda.empty_cache()
+        bad = [n for n in params["resumed"]
+               if not torch.equal(params["resumed"][n], params["straight"][n])]
+        if bad or set(params["resumed"]) != set(params["straight"]):
+            raise AssertionError(f"phase 14b: the resumed run's parameters "
+                                 f"differ from the straight run's: {bad[:5]}")
+        r1, r2, r3 = runs["save"], runs["resumed"], runs["straight"]
+        if [h["step"] for h in r2["steps"]] != [3, 4]:
+            raise AssertionError(f"phase 14b: resumed steps {r2['steps']}")
+        if r2["checkpoint"]["steps_on_disk"] != ["save_4"]:
+            raise AssertionError(f"phase 14b: rotation left "
+                                 f"{r2['checkpoint']['steps_on_disk']}")
+        if [h["loss"] for h in r2["steps"]] != [h["loss"] for h in
+                                                r3["steps"][2:]]:
+            raise AssertionError("phase 14b: resumed losses differ")
+        launches = {}
+        for tag, r in (("save", r1), ("resumed", r2), ("straight", r3)):
+            c, n = r["counters"], len(r["steps"])
+            # one layer, full remat: the forward kernels run twice a step
+            want = {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n, "moe_ffn_aligned": 2 * n,
+                    "plain_calls": 0, "eager_calls": 0,
+                    "flash_bwd_fused": 0}
+            if {k: c[k] for k in want} != want:
+                raise AssertionError(
+                    f"phase 14b {tag}: counters {c}, expected {want}")
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "moe_ffn_aligned"):
+                launches[k] = launches.get(k, 0) + c[k]
+        nbytes = runs["bytes_save_2"]
+        ck1, ck2 = r1["checkpoint"], r2["checkpoint"]
+        save_s = ck1["save_seconds"] + ck1["wait_seconds"]
+        say(phase="example_full", model="qwen3_30b_a3b", layers=1,
+            layers_reduced_from=48, params=runs["disk"]["params"],
+            setup={"dtype": "bfloat16", "param_dtype": "float32",
+                   "remat": "full", "optimizer": "AdamW", "rows": 2,
+                   "seq": EXAMPLE_FULL_SEQ, "mesh": "one rank",
+                   "checkpoint_async": True},
+            disk=runs["disk"], checkpoint_bytes=nbytes,
+            save={"blocking_seconds": ck1["save_seconds"],
+                  "wait_seconds": ck1["wait_seconds"],
+                  "gb_per_s": nbytes / save_s / 1e9},
+            restore={"seconds": ck2["restore_seconds"],
+                     "validate_seconds": ck2["validate_seconds"],
+                     "gb_per_s": nbytes / ck2["restore_seconds"] / 1e9},
+            rotation_left=ck2["steps_on_disk"],
+            ms_per_step=1e3 * r3["steps"][-1]["wall_s"] / len(r3["steps"]),
+            ms_per_step_is="the straight run's train() wall over its 4 steps",
+            steps={t: r["steps"] for t, r in (("save", r1), ("resumed", r2),
+                                              ("straight", r3))},
+            resumed_params_equal_straight=True,
+            peak_memory_gb={t: r["peak_memory_bytes"] / 1e9
+                            for t, r in (("save", r1), ("resumed", r2),
+                                         ("straight", r3))},
+            launches=launches, seconds=time.perf_counter() - t0)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import gc
 
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    phase_small_e2e()
-    phase_small_e2e_moe()
-    phase_small_e2e_train()
-    phase_small_e2e_train_moe()
-    phase_small_e2e_train_bf16()
-    launches, model = phase_full_width()
-    for name, n in phase_full_width_paged(model).items():
+    phase_seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_build)
+    kernels = timed(phase_kernels)
+    for phase in (phase_small_e2e, phase_small_e2e_moe, phase_small_e2e_train,
+                  phase_small_e2e_train_moe, phase_small_e2e_train_bf16):
+        timed(phase)
+    launches, model = timed(phase_full_width)
+    for name, n in timed(phase_full_width_paged, model).items():
         launches[name] += n
     del model
     gc.collect()
@@ -5639,8 +6089,8 @@ def main():
                   phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train,
                   phase_dp_train, phase_tp_train, phase_ep_train,
-                  phase_mesh_train):
-        for name, n in phase().items():
+                  phase_mesh_train, phase_example, phase_example_full):
+        for name, n in timed(phase).items():
             launches[name] += n
         gc.collect()
         torch.cuda.empty_cache()
@@ -5650,7 +6100,8 @@ def main():
             raise AssertionError(f"{k['name']} never launched on the main path")
     if launches["plain_calls"] or launches["eager_calls"]:
         raise AssertionError(f"plain/eager branch taken: {launches}")
-    say(phase="done", seconds=round(time.perf_counter() - t_start, 1))
+    say(phase="done", seconds=round(time.perf_counter() - t_start, 1),
+        phase_seconds=phase_seconds)
     print(smi, flush=True)
     say(kernels=kernels)
     say(ok=True, device={"platform": "gpu",
@@ -5676,6 +6127,13 @@ if __name__ == "__main__":
                     sys.argv[5], sys.argv[6], sys.argv[7])
     elif sys.argv[1:2] == ["--mesh-reference"]:
         mesh_reference(sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--example-only"]:
+        # phase 14 alone: python3 chip_smoke.py --example-only nccl 8
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="example", launches=phase_example(sys.argv[2],
+                                                    int(sys.argv[3])))
+        say(phase="example_full", launches=phase_example_full())
     elif sys.argv[1:2] == ["--mesh-only"]:
         # phase 13 alone: python3 chip_smoke.py --mesh-only nccl 8
         print(phase_device(), flush=True)

@@ -77,6 +77,9 @@
 // range does not run at all, so at shift 0 the kernels visit exactly the
 // tiles they visited before.
 //
+// Every kernel takes head dims 32, 64 and 128, each a template instantiation
+// (dispatch_bwd below).
+//
 // The CUDA-core kernels are synchronous (a tile is loaded, then used) and
 // hold one block per SM; the tensor-core kernels stream their tiles with
 // cp.async and hold two (see flash_bwd_mma.cuh, flash_bwd_fused_mma.cuh).
@@ -632,6 +635,7 @@ cudaError_t dispatch_bwd(const BwdParams& p, int D, int kernel,
                          cudaStream_t stream) {
   if (D == 128) return launch_bwd<T, 128>(p, kernel, stream);
   if (D == 64) return launch_bwd<T, 64>(p, kernel, stream);
+  if (D == 32) return launch_bwd<T, 32>(p, kernel, stream);
   return cudaErrorInvalidValue;
 }
 

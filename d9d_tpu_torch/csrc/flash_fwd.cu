@@ -32,6 +32,8 @@
 // products, softmax in registers on exp2f, the mask only on edge tiles,
 // causal row tiles heaviest first); float32 inputs keep exact fp32 products
 // on the CUDA cores (attn_tile.cuh: 32-row tiles, synchronous tile loads).
+// Both take head dims 32, 64 and 128, each a template instantiation of the
+// same core (32 is the example config's, example/qwen3_moe/pretrain.json).
 #include "attn_fwd_sm90.cuh"
 #include "attn_tile.cuh"
 
@@ -41,11 +43,13 @@ namespace {
 cudaError_t dispatch_fwd_f32(const AttnParams& p, int D, cudaStream_t stream) {
   if (D == 128) return launch_attn<float, 128, 32, 64, 128>(p, stream);
   if (D == 64) return launch_attn<float, 64, 32, 64, 128>(p, stream);
+  if (D == 32) return launch_attn<float, 32, 32, 64, 128>(p, stream);
   return cudaErrorInvalidValue;
 }
 cudaError_t dispatch_fwd_bf16(const AttnParams& p, int D, cudaStream_t stream) {
   if (D == 128) return launch_attn_fwd_sm90<128>(p, stream);
   if (D == 64) return launch_attn_fwd_sm90<64>(p, stream);
+  if (D == 32) return launch_attn_fwd_sm90<32>(p, stream);
   return cudaErrorInvalidValue;
 }
 }  // namespace

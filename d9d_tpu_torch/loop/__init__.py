@@ -6,6 +6,7 @@ from d9d_tpu_torch.loop.auto import (
     build_lr_schedule,
     build_optimizer,
 )
+from d9d_tpu_torch.loop.components.data_loader import StatefulDataLoader
 from d9d_tpu_torch.loop.config import TrainerConfig
 from d9d_tpu_torch.loop.control.providers import (
     AdamWProvider,
@@ -31,6 +32,7 @@ __all__ = [
     "OptimizerProvider",
     "PiecewiseLRConfig",
     "ServeStats",
+    "StatefulDataLoader",
     "StochasticAdamWConfig",
     "TrainTask",
     "Trainer",

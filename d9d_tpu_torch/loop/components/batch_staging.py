@@ -60,12 +60,14 @@ def split_microbatches(prepared: dict, *, num_microbatches: int,
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
 
-def stage_microbatches(prepared: dict, *, num_microbatches: int,
-                       microbatch_size: int, device: torch.device,
-                       seq_len: int | None = None, cp_size: int = 1,
-                       cp_rank: int = 0, dp_size: int = 1,
-                       dp_rank: int = 0) -> list[dict[str, torch.Tensor]]:
-    """:func:`split_microbatches`, each leaf as a tensor on ``device``."""
+def host_microbatches(prepared: dict, *, num_microbatches: int,
+                      microbatch_size: int, device: torch.device,
+                      seq_len: int | None = None, cp_size: int = 1,
+                      cp_rank: int = 0, dp_size: int = 1,
+                      dp_rank: int = 0) -> list[dict[str, torch.Tensor]]:
+    """:func:`split_microbatches`, each leaf as a host tensor, pinned when
+    ``device`` is a card (the host half of the staging, which a prefetch
+    thread may run)."""
     out = []
     for mb in split_microbatches(prepared, num_microbatches=num_microbatches,
                                  microbatch_size=microbatch_size,
@@ -75,10 +77,20 @@ def stage_microbatches(prepared: dict, *, num_microbatches: int,
         staged = {}
         for key, x in mb.items():
             t = torch.from_numpy(np.ascontiguousarray(x))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            else:
-                t = t.to(device)
-            staged[key] = t
+            staged[key] = t.pin_memory() if device.type == "cuda" else t
         out.append(staged)
     return out
+
+
+def to_device(microbatches: list[dict[str, torch.Tensor]],
+              device: torch.device) -> list[dict[str, torch.Tensor]]:
+    """Host microbatches onto ``device`` (from pinned memory,
+    asynchronously, on a card)."""
+    return [{k: t.to(device, non_blocking=device.type == "cuda")
+             for k, t in mb.items()} for mb in microbatches]
+
+
+def stage_microbatches(prepared: dict, *, device: torch.device,
+                       **kw) -> list[dict[str, torch.Tensor]]:
+    """:func:`split_microbatches`, each leaf as a tensor on ``device``."""
+    return to_device(host_microbatches(prepared, device=device, **kw), device)

@@ -1,6 +1,5 @@
 """Step counting (counterpart of ``d9d_tpu/loop/components/stepper.py``
-``Stepper``; its checkpoint state and ``StepActionPeriod`` come with the
-checkpointer)."""
+``Stepper``; its ``StepActionPeriod`` is not ported)."""
 
 import dataclasses
 
@@ -17,3 +16,6 @@ class Stepper:
     @property
     def finished(self) -> bool:
         return self.total_steps is not None and self.step >= self.total_steps
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])

@@ -4,12 +4,14 @@ A dataclass with the JAX ``TrainerConfig``'s field names and defaults.
 Unknown fields are refused, as the JAX model's ``extra="forbid"`` refuses
 them. Features of the JAX trainer that this port does not have yet raise
 ``NotImplementedError`` when a field turns them on: the pipeline schedule,
-checkpointing, profiling, the hang watchdog, the anomaly guard, telemetry
-sinks and the metrics endpoint, the numerics plane, the pipeline timeline,
-ZeRO sharding and the split optimizer update. Three features are ON by
-default in the JAX config and are not ported: preemption handling, the
-telemetry console and batch prefetch. Their fields default to OFF here, and
-turning them on raises.
+profiling, the hang watchdog, the anomaly guard, telemetry sinks and the
+metrics endpoint, the numerics plane, the pipeline timeline, ZeRO sharding,
+the split optimizer update and the HBM budget of a resharding restore.
+Checkpointing (``checkpoint_dir``, ``loop/components/checkpointer.py``)
+and batch prefetch (``prefetch_batches``, JAX's default of 2) are ported.
+Two features are ON by default in the JAX config and are not ported:
+preemption handling and the telemetry console. Their fields default to OFF
+here, and turning them on raises.
 """
 
 import dataclasses
@@ -57,8 +59,7 @@ class TrainerConfig:
 
     gc_every_steps: int | None = 100
 
-    # not ported yet: 0 here (the JAX default is 2)
-    prefetch_batches: int = 0
+    prefetch_batches: int = 2
 
     telemetry_dir: str | None = None
     telemetry_every_steps: int | None = None
@@ -85,13 +86,11 @@ class TrainerConfig:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         unported = {
             "pipeline": self.pipeline is not None,
-            "checkpoint_dir": self.checkpoint_dir is not None,
             "profile_dir": self.profile_dir is not None,
             "init_timeout_s": self.init_timeout_s is not None,
             "step_timeout_s": self.step_timeout_s is not None,
             "anomaly_policy": self.anomaly_policy is not None,
             "handle_preemption": self.handle_preemption,
-            "prefetch_batches": self.prefetch_batches > 0,
             "telemetry_dir": self.telemetry_dir is not None,
             "telemetry_console": self.telemetry_console,
             "metrics_port": self.metrics_port is not None,
@@ -99,6 +98,9 @@ class TrainerConfig:
             "pp_timeline_every_steps": self.pp_timeline_every_steps is not None,
             "zero_sharding": self.zero_sharding,
             "split_optimizer_update": self.split_optimizer_update,
+            # the budgeted reshard of a restore onto another mesh
+            # (resilience/elastic.py redistribute_tree): ROADMAP A5.3
+            "reshard_hbm_budget_mb": self.reshard_hbm_budget_mb is not None,
         }
         on = [name for name, enabled in unported.items() if enabled]
         if on:

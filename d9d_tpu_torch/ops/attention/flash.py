@@ -35,7 +35,7 @@ from d9d_tpu_torch.ops.attention.eager import eager_sdpa
 
 NEG_BIG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
 # |q_offset - k_offset| the kernels' int arithmetic takes with room to spare
 MAX_SHIFT = 2 ** 30
 

@@ -39,7 +39,11 @@ import torch.distributed as dist
 
 from d9d_tpu_torch.core import collectives
 from d9d_tpu_torch.core.collectives import all_to_all_rows, allgather_counts
-from d9d_tpu_torch.ops.moe import combine_pairs, stable_expert_order
+from d9d_tpu_torch.ops.moe import (
+    combine_pairs,
+    pair_rows,
+    stable_expert_order,
+)
 
 __all__ = ["EpPlan", "ep_buffer_rows", "ep_dispatch_compute_combine",
            "reset_counters"]
@@ -118,11 +122,11 @@ def ep_dispatch_compute_combine(
                                                    e_loc * world)
     S = allgather_counts(counts, group)
     plan = EpPlan(S, ep_rank, e_loc, m, capacity_factor)
-    token_of = order // k
+    sent = order
     if plan.kept is not None:
         kept = torch.from_numpy(plan.kept).to(x.device)
-        token_of = token_of.index_select(0, kept)
-    rows = x.index_select(0, token_of)
+        sent = order.index_select(0, kept)
+    rows = pair_rows(x, k, sent)
     recv = all_to_all_rows(rows, plan.recv, plan.send, group)
     labels = torch.from_numpy(plan.labels).to(x.device)
     y = expert_fn(recv, labels, [int(g) for g in plan.group_sizes])

@@ -64,12 +64,27 @@ def sort_tokens_by_expert(topk_ids: torch.Tensor, num_experts: int) -> TokenSort
                      group_sizes=group_sizes)
 
 
+def pair_rows(x: torch.Tensor, k: int, pairs: torch.Tensor) -> torch.Tensor:
+    """Rows ``pairs`` (token-major flat pair indices, each at most once) of
+    the tokens ``x [N, D]`` repeated ``k`` times: token ``p // k`` for pair
+    ``p``. The values of a gather by token, but not its backward: that one
+    adds each token's row gradients by atomics in the order they land on a
+    card, which changes the bits from run to run once a token has three or
+    more (top-k >= 3). This backward is a collision-free gather and a sum
+    over each token's k pairs in a fixed order, the same on every run."""
+    n, d = x.shape
+    return x.unsqueeze(1).expand(n, k, d).reshape(n * k, d).index_select(
+        0, pairs)
+
+
 def permute_tokens(
     x: torch.Tensor, probs: torch.Tensor, sort: TokenSort
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Tokens and their routing probs in expert-sorted layout:
-    ``x [N, D]``, ``probs [N, K]`` → ``([N*K, D], [N*K])``."""
-    return (x.index_select(0, sort.token_idx),
+    ``x [N, D]``, ``probs [N, K]`` → ``([N*K, D], [N*K])`` (the rows by
+    :func:`pair_rows`)."""
+    k = sort.sort_idx.shape[0] // x.shape[0]
+    return (pair_rows(x, k, sort.sort_idx),
             probs.reshape(-1).index_select(0, sort.sort_idx))
 
 
@@ -169,6 +184,7 @@ __all__ = [
     "group_sizes_on_host",
     "grouped_matmul",
     "grouped_swiglu_apply",
+    "pair_rows",
     "permute_tokens",
     "sort_tokens_by_expert",
     "stable_expert_order",

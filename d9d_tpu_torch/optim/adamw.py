@@ -17,6 +17,12 @@ optimizer. Parameters are updated in place; moments live beside them in the
 parameters' dtype. A parameter that a plan sharded (a ``DTensor``) is
 stepped on this rank's piece, and its moments are pieces of the same
 shape.
+
+``state_dict`` holds ``count`` (the LR schedule's position) and the
+moments as they are on this rank; ``checkpoint_state`` the same with each
+moment laid out as its parameter (a ``DTensor`` over the parameter's mesh
+and placements, ``parallel/shards.py`` ``like_param``), the form the job
+checkpointer saves with DCP and loads in place onto any mesh.
 """
 
 from collections.abc import Callable, Iterable
@@ -24,7 +30,7 @@ from collections.abc import Callable, Iterable
 import numpy as np
 import torch
 
-from d9d_tpu_torch.parallel.shards import local_tensor
+from d9d_tpu_torch.parallel.shards import like_param, local_tensor
 
 
 class AdamW:
@@ -72,3 +78,38 @@ class AdamW:
                 update.add_(p, alpha=self.weight_decay)
             p.add_(update, alpha=-lr)
         self.count = k + 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count,
+                "mu": [m.clone() for m in self.mu],
+                "nu": [v.clone() for v in self.nu]}
+
+    def load_state_dict(self, state: dict) -> None:
+        load_moments_(self, state)
+
+    def checkpoint_state(self) -> dict:
+        return checkpoint_state(self)
+
+
+def checkpoint_state(opt) -> dict:
+    """``opt``'s ``count`` as a 0-dim int64 tensor and its moments, each
+    laid out as its parameter (sharing the moment's storage: a load into
+    it writes the moment)."""
+    return {"count": torch.tensor(opt.count, dtype=torch.int64),
+            "mu": [like_param(m, p) for m, p in zip(opt.mu, opt.params)],
+            "nu": [like_param(v, p) for v, p in zip(opt.nu, opt.params)]}
+
+
+def load_moments_(opt, state: dict) -> None:
+    """Set ``opt``'s ``count`` and copy its moments from ``state`` (a
+    :func:`checkpoint_state` or ``state_dict`` form; a moment that already
+    is ``state``'s is left as it is)."""
+    if len(state["mu"]) != len(opt.mu) or len(state["nu"]) != len(opt.nu):
+        raise ValueError(f"{type(opt).__name__}.load_state_dict: the state "
+                         f"has another number of parameters")
+    opt.count = int(state["count"])
+    with torch.no_grad():
+        for dst, src in zip(opt.mu + opt.nu, state["mu"] + state["nu"]):
+            src = local_tensor(src)
+            if src.data_ptr() != dst.data_ptr() or src.device != dst.device:
+                dst.copy_(src)

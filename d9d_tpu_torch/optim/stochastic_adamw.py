@@ -19,7 +19,9 @@ host from (``seed``, update count ``k + 1``, leaf index, role 0/1/2 for
 parameter/m/v), as the JAX optimizer folds the count and the leaf index into
 its key and splits it three ways; it reaches the kernel by value, so the
 step reads nothing back. ``state_dict`` holds ``count``, the moments and
-``seed``, so a resumed run repeats the noise stream exactly.
+``seed``, so a resumed run repeats the noise stream exactly;
+``checkpoint_state`` is its form for the job checkpointer (each moment laid
+out as its parameter, as ``AdamW.checkpoint_state``).
 
 A parameter that a plan sharded (a ``DTensor``) is stepped on this rank's
 piece, its moments are pieces of the same shape, and every rounding of the
@@ -38,6 +40,7 @@ from collections.abc import Callable, Iterable
 import numpy as np
 import torch
 
+from d9d_tpu_torch.optim.adamw import checkpoint_state, load_moments_
 from d9d_tpu_torch.ops.stochastic import (
     fold_seed,
     shard_index,
@@ -141,11 +144,12 @@ class StochasticAdamW:
                 "nu": [v.clone() for v in self.nu]}
 
     def load_state_dict(self, state: dict) -> None:
-        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
-            raise ValueError("StochasticAdamW.load_state_dict: the state has "
-                             "another number of parameters")
-        self.count = int(state["count"])
+        load_moments_(self, state)
         self.seed = int(state["seed"])
-        with torch.no_grad():
-            for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
-                dst.copy_(src)
+
+    def checkpoint_state(self) -> dict:
+        """:meth:`state_dict` for the job checkpointer: ``count`` and
+        ``seed`` as 0-dim int64 tensors, each moment laid out as its
+        parameter (``optim/adamw.py`` ``checkpoint_state``)."""
+        return dict(checkpoint_state(self),
+                    seed=torch.tensor(self.seed, dtype=torch.int64))

@@ -87,6 +87,20 @@ def local_piece(whole: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return whole
 
 
+def like_param(local: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """``local`` (a tensor shaped as this rank's piece of ``param``, such
+    as an optimizer moment) laid out as ``param`` is: a ``DTensor`` over
+    ``param``'s mesh and placements with its global shape and stride,
+    sharing ``local``'s storage (no communication); ``local`` itself for a
+    plain ``param``. A checkpoint of it holds each rank's piece where it
+    lies in the whole tensor, so it loads in place onto any mesh."""
+    if not isinstance(param, DTensor):
+        return local
+    return DTensor.from_local(local, param.device_mesh, param.placements,
+                              run_check=False, shape=param.shape,
+                              stride=param.stride())
+
+
 def write_whole_(param: torch.Tensor, whole: torch.Tensor) -> None:
     """Write the full value ``whole`` into ``param``: all of it into a
     plain tensor, this rank's piece into a ``DTensor``."""
@@ -173,6 +187,7 @@ def model_group(weight: torch.Tensor):
     return weight.device_mesh.get_group(0)
 
 
-__all__ = ["gather_whole", "is_sharded", "local_piece", "local_tensor",
+__all__ = ["gather_whole", "is_sharded", "like_param", "local_piece",
+           "local_tensor",
            "model_group", "piece_bounds", "shard_bounds", "shard_cuts",
            "vocab_slice", "write_whole_"]

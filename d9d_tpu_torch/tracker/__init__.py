@@ -1,4 +1,26 @@
-from d9d_tpu_torch.tracker.base import Tracker, TrackerRun
-from d9d_tpu_torch.tracker.providers import NullTracker, NullTrackerRun
+"""Experiment trackers (counterpart of ``d9d_tpu/tracker``)."""
 
-__all__ = ["NullTracker", "NullTrackerRun", "Tracker", "TrackerRun"]
+from d9d_tpu_torch.tracker.base import Tracker, TrackerRun
+from d9d_tpu_torch.tracker.providers import (
+    JsonlTracker,
+    JsonlTrackerRun,
+    MemoryTracker,
+    MemoryTrackerRun,
+    MirrorTrackerRun,
+    NullTracker,
+    NullTrackerRun,
+    build_tracker,
+)
+
+__all__ = [
+    "JsonlTracker",
+    "JsonlTrackerRun",
+    "MemoryTracker",
+    "MemoryTrackerRun",
+    "MirrorTrackerRun",
+    "NullTracker",
+    "NullTrackerRun",
+    "Tracker",
+    "TrackerRun",
+    "build_tracker",
+]

@@ -1,6 +1,8 @@
 """Experiment tracker abstraction (counterpart of
 ``d9d_tpu/tracker/base.py``): a tracker opens a run; the run takes scalars
-and pre-binned histograms under hierarchical names with a context-tag dict."""
+and pre-binned histograms under hierarchical names with a context-tag dict.
+Run-hash persistence lives in ``state_dict`` / ``load_state_dict`` so a
+resumed job continues the same tracker run."""
 
 import abc
 from typing import Any
@@ -21,6 +23,14 @@ class TrackerRun(abc.ABC):
         """Optional one-shot hyperparameter dump."""
 
     def close(self) -> None: ...
+
+    # resume support ---------------------------------------------------
+
+    def state_dict(self) -> dict[str, Any]:
+        return {}
+
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        pass
 
 
 class Tracker(abc.ABC):

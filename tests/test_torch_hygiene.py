@@ -108,6 +108,13 @@ def test_port_has_the_expected_files():
         "d9d_tpu_torch/model_state/io/safetensors_format.py",
         "d9d_tpu_torch/model_state/io/writer.py",
         "d9d_tpu_torch/models/qwen3/huggingface.py",
+        "d9d_tpu_torch/dataset/padding.py",
+        "d9d_tpu_torch/dataset/sharded.py",
+        "d9d_tpu_torch/loop/components/data_loader.py",
+        "d9d_tpu_torch/loop/components/prefetch.py",
+        "d9d_tpu_torch/loop/components/checkpointer.py",
+        "d9d_tpu_torch/resilience/manifest.py",
+        "d9d_tpu_torch/example/qwen3_moe/pretrain.py",
     ):
         assert needed in names
     assert {p.name for p in kernel_lib.sources()} == {
@@ -227,7 +234,7 @@ def _ffn_check(**change):
          "not supported"),
         (lambda: _flash_check(*_qkv("cpu", torch.float64)), TypeError,
          "not supported"),
-        (lambda: _flash_check(*_qkv("cpu", d=32)), ValueError, "head_dim 32"),
+        (lambda: _flash_check(*_qkv("cpu", d=48)), ValueError, "head_dim 48"),
         (lambda: _flash_check(*(x.requires_grad_() for x in _qkv("cpu"))),
          RuntimeError, "requires grad .* detached"),
         (lambda: _flash_check(*(x[..., ::2] for x in _qkv("cpu", d=128))),

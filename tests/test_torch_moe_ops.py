@@ -84,6 +84,35 @@ def test_permute_and_combine_equal_jax(case):
 
 
 @pytest.mark.parametrize("case", CASES)
+def test_permute_backward_sums_each_tokens_pairs_in_order(case):
+    """The gradient of the permuted rows reaches each token as a collision-
+    free gather of its K pair rows and one sum over them (a reduction whose
+    order is fixed, so the same on every run on a card, where a gather by
+    ``token_idx`` would add them by atomics), and within fp32 rounding of
+    JAX's ``permute_tokens`` gradient."""
+    import jax
+
+    ids, e = _ids(case)
+    n, k = ids.shape
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    probs = rng.random((n, k)).astype(np.float32)
+    g = rng.standard_normal((n * k, 16)).astype(np.float32)
+    ts = tmoe.sort_tokens_by_expert(torch.from_numpy(ids), e)
+    tx = torch.from_numpy(x).requires_grad_()
+    rows, _ = tmoe.permute_tokens(tx, torch.from_numpy(probs), ts)
+    rows.backward(torch.from_numpy(g))
+    want = torch.from_numpy(g)[ts.dest].reshape(n, k, 16).sum(1)
+    assert torch.equal(tx.grad, want)
+    js = jmoe.sort_tokens_by_expert(jnp.asarray(ids), e)
+    jgrad = jax.vjp(lambda a: jmoe.permute_tokens(a, jnp.asarray(probs),
+                                                  js)[0],
+                    jnp.asarray(x))[1](jnp.asarray(g))[0]
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_grouped_matmuls_match_jax(case):
     ids, e = _ids(case)
     n, k = ids.shape

@@ -314,6 +314,12 @@ def test_sum_then_scale_weighs_microbatches_by_their_weight():
     assert float(metrics["task/n"]) == 4.0
 
 
+# fields of the JAX config whose features are ported since this test was
+# written (checkpointing and prefetch): their cases keep their ids and now
+# check that the value is accepted and kept
+_PORTED_FIELDS = {"checkpoint_dir", "prefetch_batches"}
+
+
 @pytest.mark.parametrize("field,value", [
     ("pipeline", object()), ("checkpoint_dir", "ckpt"), ("profile_dir", "p"),
     ("anomaly_policy", "skip_step"), ("telemetry_dir", "t"),
@@ -321,11 +327,14 @@ def test_sum_then_scale_weighs_microbatches_by_their_weight():
     ("pp_timeline_every_steps", 1), ("zero_sharding", True),
     ("split_optimizer_update", True), ("handle_preemption", True),
     ("telemetry_console", True), ("prefetch_batches", 2),
-    ("step_timeout_s", 10.0),
+    ("step_timeout_s", 10.0), ("reshard_hbm_budget_mb", 512.0),
 ])
 def test_unported_config_fields_raise(field, value):
     kw = dict(global_batch_size=4, microbatch_size=2, seq_len=8, total_steps=1)
     TrainerConfig(**kw)  # the defaults are fine
+    if field in _PORTED_FIELDS:
+        assert getattr(TrainerConfig(**kw, **{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=field):
         TrainerConfig(**kw, **{field: value})
 
@@ -333,16 +342,17 @@ def test_unported_config_fields_raise(field, value):
 # TrainerConfig defaults that differ from the JAX package's (ROADMAP C2):
 # each turns on a feature the port does not have yet, so the port keeps it
 # off; the reference's default comes back when the feature is ported
+# (prefetch_batches came back with batch prefetch)
 _DIVERGENT_DEFAULTS = {
     "handle_preemption": (False, True),
-    "prefetch_batches": (0, 2),
     "telemetry_console": (False, True),
 }
 
 
 def test_trainer_config_defaults_match_jax_except_the_pinned_three():
     """Every field both configs have carries the reference's default,
-    except exactly the three pinned above; a fourth divergence fails."""
+    except exactly the ones pinned above (three until prefetch was
+    ported, two now); another divergence fails."""
     port = {f.name: f.default for f in dataclasses.fields(TrainerConfig)
             if f.default is not dataclasses.MISSING}
     ref = {name: f.default for name, f in JTrainerConfig.model_fields.items()
