@@ -127,7 +127,16 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. Phases:
    the twin in this process: 2 steps saving at 2, a resume to 4 that
    rotates ``save_2`` away, and 4 straight steps, whose parameters must
    equal the resumed run's bit for bit; the checkpoint's bytes, the save's
-   blocking and waiting seconds, the restore and GB/s.
+   blocking and waiting seconds, the restore and GB/s;
+15. pipeline parallelism — two child processes (``--pp-worker``) share the
+   card over gloo at ``pp 2`` (carries and cotangents point to point
+   through pinned memory): Qwen3-30B-A3B widths at 2 layers in fp32 under
+   Interleaved1F1B and ZeroBubbleV with ``cache_acts`` against the
+   one-process trainer, a restart from a checkpoint bit for bit, then 3
+   bf16 steps under Interleaved1F1B (a warm-up, a timed one, a profiled
+   one) with ms per step, the transfers' bytes and share, each stage's
+   device ms, peak memory and launches per rank; ``--pp-only nccl N``
+   runs it alone over NCCL.
 
 Launch counters, zeroed before each main path and read after it, show that
 every path went through its kernels and never through a plain or eager
@@ -2272,6 +2281,49 @@ def check_stochastic_round(gen):
     }
 
 
+def check_exchange_rows(gen):
+    """ROADMAP C7: ``exchange_rows``' backward on a one-rank group, with
+    ``send`` naming every row 3 times (as a dp_r 3 legacy EP flow's does):
+    two backward runs must equal bit for bit. For contrast, the gather by
+    repeated rows it replaced (whose backward adds by atomics) is run
+    twice too and its differing elements counted."""
+    import numpy as np
+
+    from d9d_tpu_torch.core.collectives import copy_pairs, exchange_rows
+
+    n, d, copies = 16384, 2048, 3
+    rows = np.random.default_rng(5).permutation(
+        np.repeat(np.arange(n), copies))
+    pairs, c = copy_pairs(rows)
+    send = torch.from_numpy(pairs).cuda()
+    by_rows = torch.from_numpy(rows).cuda()
+    order = torch.arange(len(rows), device="cuda")
+    x = _rand((n, d), torch.bfloat16, gen)
+    g = _rand((len(rows), d), torch.bfloat16, gen)
+
+    def grad(fn):
+        leaf = x.clone().requires_grad_(True)
+        out = fn(leaf)
+        out.backward(g)
+        return out.detach(), leaf.grad
+
+    new = [grad(lambda t: exchange_rows(t, send, [len(rows)], [len(rows)],
+                                        order, None, copies=c))
+           for _ in range(2)]
+    old = [grad(lambda t: t.index_select(0, by_rows)) for _ in range(2)]
+    torch.cuda.synchronize()
+    if c != copies or not torch.equal(new[0][0], old[0][0]):
+        raise AssertionError("exchange_rows: the forward is not the gather's")
+    if not torch.equal(new[0][1], new[1][1]):
+        raise AssertionError(
+            "exchange_rows: two backward runs differ: "
+            f"{int((new[0][1] != new[1][1]).sum())} elements")
+    return {"rows": n, "width": d, "copies": copies, "dtype": "bfloat16",
+            "backward_runs_equal": True,
+            "gather_by_repeated_rows_elements_differing": int(
+                (old[0][1] != old[1][1]).sum())}
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1, detail1 = check_flash_fwd(gen)
@@ -2292,6 +2344,8 @@ def phase_kernels():
     torch.cuda.empty_cache()
     k10, detail10 = check_stochastic_round(gen)
     say(phase="kernels", kernel="stochastic_round", **detail10)
+    torch.cuda.empty_cache()
+    say(phase="kernels", check="exchange_rows", **check_exchange_rows(gen))
     torch.cuda.empty_cache()
     return [k1, k2, k9, *bwd, kb, *moe, k10]
 
@@ -6061,6 +6115,470 @@ def phase_example_full():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+# ---- phase 15: pipeline parallelism ----------------------------------------
+# Two ranks share the card over gloo at ``pp 2`` (``pp 2 x dp_shard N/2``
+# with one card a rank over NCCL: ``python3 chip_smoke.py --pp-only nccl
+# N``): each rank builds and trains only the stages its pp rank owns, and
+# carries and cotangents cross between the ranks point to point
+# (``pipelining/runtime/transfer.py``; through pinned host memory over
+# gloo). The parent first trains the one-process fp32 reference alone on
+# the card (Qwen3-30B-A3B widths at PP_COMPARE's 2 of 48 layers, 4
+# microbatches of one 1024-token row a data rank, 2 steps). (a) The ranks
+# carry the reference's initial weights into their stages and train the
+# same steps under Interleaved1F1B and under ZeroBubbleV with
+# ``cache_acts``, each step's loss and grad norm held to the reference
+# within PP_TRAIN_TOL; then a ZeroBubbleV run stopped after step 1 (its
+# checkpoint saved) and a restart from that checkpoint must give the
+# uninterrupted run's step 2 and final parameters bit for bit. (b) The main
+# run: PP_MAIN's 2 of 48 layers, bf16 compute over fp32 parameters, AdamW,
+# PP_MAIN_SCHEDULE, 8 microbatches of 2048 tokens a data rank, 3 steps:
+# a warm-up, the timed step (ms, P2P share), and one under torch.profiler
+# for each stage's device ms (:func:`_pp_step_device_ms`). Two ranks
+# time-share one card: the phase shows correctness and times, not pipeline
+# scaling.
+
+PP_CHILD_TIMEOUT_S = 600
+PP_TRAIN_TOL = 1e-4  # fp32 compute: sums in other orders (stages apart)
+PP_SEED = 17
+PP_COMPARE = dict(layers=2, microbatches=4, seq=1024, steps=2)
+PP_COMPARE_SCHEDULES = {
+    "interleaved_1f1b": {"type": "interleaved_1f1b"},
+    "zero_bubble_v": {"type": "zero_bubble_v",
+                      "residual_policy": "cache_acts"},
+}
+# the main run's planned shape, 4 of 48 layers under ZeroBubbleV with
+# cache_acts, ran two ranks on one card out of memory (rank 0: 44.9 GB
+# without layer remat, 48.5 GB with it, beside rank 1's 26.8–30.8 GB;
+# PERF.md §4): it runs 2 layers under Interleaved1F1B (JAX's default
+# residual policy, remat: only the carries wait between a forward and its
+# backward); 15a holds ZeroBubbleV with cache_acts
+PP_MAIN = dict(layers=2, microbatches=8, seq=2048, steps=3, remat=False)
+PP_MAIN_SCHEDULE = {"type": "interleaved_1f1b"}
+
+
+def _pp_mesh(world):
+    return dict(pp=2, dp_shard=world // 2) if world > 2 else dict(pp=2)
+
+
+def _pp_config(layers, remat=False):
+    import dataclasses
+
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeConfig
+
+    # without layer remat the stages keep each microbatch's whole graph
+    # from its forward to its backward (cache_acts' residuals)
+    return dataclasses.replace(Qwen3MoeConfig.qwen3_30b_a3b(),
+                               num_layers=layers, remat=remat)
+
+
+class _RowData:
+    """``_Batches``' rows as a map dataset that ``StatefulDataLoader``
+    batches in order, so a restart resumes at the next batch."""
+
+    def __init__(self, vocab, steps, gbs, seq, seed):
+        import numpy as np
+
+        bs = _Batches(vocab, steps, gbs, seq, seed=seed, loss_mask=True)
+        self.ids = np.concatenate([b["input_ids"] for b in bs.batches])
+        self.mask = np.concatenate([b["loss_mask"] for b in bs.batches])
+        self.gbs = gbs
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i], "loss_mask": self.mask[i]}
+
+    def build(self):
+        from d9d_tpu_torch.loop import StatefulDataLoader
+
+        return StatefulDataLoader(self, self.gbs, shuffle=False,
+                                  num_epochs=None)
+
+
+def _pp_trainer(ctx, layers, microbatches, seq, steps, dtype, rows,
+                schedule=None, seed=PP_SEED, remat=False, **over):
+    """A Trainer at Qwen3-30B-A3B widths and ``layers`` layers: ``rows``
+    rows of ``seq`` tokens a microbatch, ``microbatches`` a step, AdamW;
+    the pipeline ``schedule`` on a mesh with ``pp > 1``."""
+    from d9d_tpu_torch.loop import (
+        AdamWProvider,
+        CausalLMTask,
+        ModelProvider,
+        Trainer,
+        TrainerConfig,
+    )
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM
+    from d9d_tpu_torch.pipelining import PipelineStageInfo
+
+    cfg = _pp_config(layers, remat)
+
+    class Staged(ModelProvider):
+        def build_module(self, c, stage=PipelineStageInfo()):
+            return Qwen3MoeCausalLM(cfg, dtype=dtype,
+                                    param_dtype=torch.float32,
+                                    device=c.device, seed=seed, stage=stage)
+
+    gbs = rows * microbatches
+    return Trainer(
+        ctx=ctx,
+        config=TrainerConfig(global_batch_size=gbs, microbatch_size=rows,
+                             seq_len=seq, total_steps=steps, log_every=1,
+                             max_grad_norm=1.0, pipeline=schedule,
+                             gc_every_steps=None, prefetch_batches=0,
+                             **over),
+        model_provider=Staged(),
+        dataset_provider=_RowData(cfg.vocab_size, steps, gbs, seq, seed + 1),
+        task=CausalLMTask(),
+        optimizer_provider=AdamWProvider(weight_decay=0.1),
+        learning_rate=3e-4)
+
+
+def _pp_carry(trainer, layers, dtype, seed=PP_SEED):
+    """The one-process model's initial weights (same seed) into this
+    rank's stages."""
+    from d9d_tpu_torch.models.qwen3 import Qwen3MoeCausalLM
+
+    whole = Qwen3MoeCausalLM(_pp_config(layers), dtype=dtype,
+                             param_dtype=torch.float32,
+                             device=trainer.ctx.device, seed=seed)
+    src = dict(whole.named_parameters())
+    with torch.no_grad():
+        for name, p in trainer.pp_engine.named_parameters().items():
+            p.copy_(src[name])
+    del whole, src
+
+
+def _pp_counters():
+    from d9d_tpu_torch.pipelining.runtime import p2p_counters as c
+
+    return {**read_counters(), "p2p_calls": c.calls,
+            "p2p_bytes_sent": c.bytes_sent,
+            "p2p_bytes_received": c.bytes_received,
+            "p2p_host_staged_bytes": c.host_staged_bytes,
+            "p2p_seconds": c.seconds}
+
+
+def _pp_reset_counters():
+    from d9d_tpu_torch.pipelining.runtime import p2p_counters
+
+    reset_counters()
+    p2p_counters.reset()
+
+
+def _pp_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+_PP_COMPUTE = ("fwd", "bwd", "bwd_dI", "bwd_dW")
+
+
+def _pp_step_device_ms(prof, stages):
+    """One profiled pipeline step's kernel ms, by where they were launched:
+    under stage k's compute actions (the executor's ``pp_s{k}/<action>``
+    ranges), under its sends and receives, or elsewhere (the optimizer).
+    A kernel goes to the range open on the executor's thread when its
+    launching op started: a backward's ops run on autograd's device
+    thread while that thread waits in the range, so they are not the
+    range's children in the trace. ``None`` where the profiler recorded
+    no device time."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.name.startswith("pp_s"))
+    starts = [sp[0] for sp in spans]
+    stage_ms = {s: 0.0 for s in stages}
+    p2p_ms = other_ms = 0.0
+    for e in events:
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if not ms:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.time_range.start > spans[i][1]:
+            other_ms += ms
+            continue
+        stage, _, action = spans[i][2][len("pp_s"):].partition("/")
+        if action in _PP_COMPUTE:
+            stage_ms[int(stage)] += ms
+        else:
+            p2p_ms += ms
+    if not (sum(stage_ms.values()) + p2p_ms + other_ms):
+        return {"stage_device_ms": None, "p2p_device_ms": None,
+                "other_device_ms": None}
+    return {"stage_device_ms": stage_ms, "p2p_device_ms": p2p_ms,
+            "other_device_ms": other_ms}
+
+
+def pp_reference(rows):
+    """Phase 15's one-process fp32 reference on the card: ``rows`` rows a
+    microbatch (one a data rank of the pipeline mesh) → its steps."""
+    from d9d_tpu_torch.core import MeshParameters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = _pp_trainer(MeshParameters().build(["cuda:0"]),
+                          dtype=torch.float32, rows=rows, **PP_COMPARE)
+    hist = trainer.train()
+    return [{"loss": h["loss"], "grad_norm": h["grad_norm"]} for h in hist]
+
+
+def _fingerprint(params):
+    """sha256 over each parameter's name and bits (summed on the card in
+    int64 over 4-byte words, and the first and last 1024 words)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        words = params[name].detach().contiguous().view(-1).view(torch.int32)
+        h.update(name.encode())
+        h.update(str(int(words.long().sum())).encode())
+        h.update(words[:1024].cpu().numpy().tobytes())
+        h.update(words[-1024:].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pp_worker(rank, world, rdzv, backend, tmp):
+    """One rank of phase 15 (``chip_smoke.py --pp-worker RANK WORLD
+    RENDEZVOUS BACKEND TMP``): (a) the fp32 comparison runs and the
+    restart, (b) the main run; every result is a JSON line tagged with the
+    rank."""
+    import contextlib
+    import gc
+    import math
+    import os
+
+    from d9d_tpu_torch.core import (
+        MeshParameters,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from d9d_tpu_torch.ops import kernel_lib
+
+    def say_rank(**obj):
+        say(rank=rank, phase="pp_train", **obj)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_lib.load()  # built by the parent: loads, never compiles here
+    init_distributed(rank=rank, world_size=world, init_method=rdzv,
+                     backend=backend)
+    devices = _cp_devices(world, backend)
+    mesh = _pp_mesh(world)
+    rows = world // 2  # one row a data rank
+    try:
+        ctx = MeshParameters(**mesh).build(devices)
+        fp32 = dict(PP_COMPARE, dtype=torch.float32, rows=rows)
+        final = {}
+        for tag, schedule in PP_COMPARE_SCHEDULES.items():
+            trainer = _pp_trainer(ctx, schedule=schedule, **fp32)
+            _pp_carry(trainer, PP_COMPARE["layers"], torch.float32)
+            _pp_reset_counters()
+            t0 = time.perf_counter()
+            hist = trainer.train()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            say_rank(entry=tag, schedule=schedule,
+                     stages=sorted(trainer.pp_engine.stages),
+                     steps=[{"loss": h["loss"], "grad_norm": h["grad_norm"]}
+                            for h in hist],
+                     train_seconds=seconds, counters=_pp_counters())
+            if tag == "zero_bubble_v":
+                final = {n: p.detach().clone() for n, p in
+                         trainer.pp_engine.named_parameters().items()}
+                full_step2 = hist[-1]["loss"]
+            del trainer
+            free()
+
+        # the restart: a run stopped after step 1, then resumed to step 2
+        ckpt = os.path.join(tmp, "pp_ckpt")
+        zbv = PP_COMPARE_SCHEDULES["zero_bubble_v"]
+        t0 = time.perf_counter()
+        part = _pp_trainer(ctx, schedule=zbv, checkpoint_dir=ckpt,
+                           checkpoint_async=False,
+                           **dict(fp32, steps=1))
+        _pp_carry(part, PP_COMPARE["layers"], torch.float32)
+        part.train()
+        part.close()
+        del part
+        free()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = _pp_trainer(ctx, schedule=zbv, checkpoint_dir=ckpt,
+                              checkpoint_async=False, **fp32)
+        hist = resumed.train()
+        resumed.close()
+        got = resumed.pp_engine.named_parameters()
+        unequal = sorted(n for n, p in got.items()
+                         if not torch.equal(p.detach(), final[n]))
+        say_rank(entry="resume", steps=[h["step"] for h in hist],
+                 loss=hist[-1]["loss"], uninterrupted_loss=full_step2,
+                 loss_equal=hist[-1]["loss"] == full_step2,
+                 params_unequal=unequal, hash=_fingerprint(got),
+                 uninterrupted_hash=_fingerprint(final),
+                 part_seconds=save_s,
+                 resume_seconds=time.perf_counter() - t0)
+        del resumed, got, final
+        free()
+
+        # (b) the main run
+        from d9d_tpu_torch.pipelining.runtime import p2p_counters
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = _pp_trainer(ctx, schedule=PP_MAIN_SCHEDULE,
+                              dtype=torch.bfloat16, rows=rows, **PP_MAIN)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        engine = trainer.pp_engine
+        data = iter(trainer.dataset_provider.build())
+        steps, walls, p2p = [], [], []
+        _pp_reset_counters()
+        for step in range(PP_MAIN["steps"]):
+            # step 1 warms up (optimizer state, allocator, pinned
+            # buffers); step 2 is timed; step 3 runs under the profiler
+            prof = _pp_profile() if step == 2 else contextlib.nullcontext()
+            s0 = dict(vars(p2p_counters))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prof:
+                m = trainer.run_step(next(data))
+                loss, norm = float(m["loss"]), float(m["grad_norm"])
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            steps.append({"loss": loss, "grad_norm": norm})
+            p2p.append({k: v - s0[k] for k, v in vars(p2p_counters).items()})
+        got = _pp_counters()
+        if not all(math.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"pp rank {rank}: bad history {steps}")
+        device = _pp_step_device_ms(prof, engine.stages)
+        params = engine.named_parameters()
+        say_rank(
+            entry="Trainer.run_step", model="qwen3_30b_a3b",
+            layers=PP_MAIN["layers"], layers_reduced_from=48,
+            mesh=mesh, schedule=PP_MAIN_SCHEDULE,
+            stages=sorted(engine.stages),
+            params_on_rank=sum(p.numel() for p in params.values()),
+            microbatches=PP_MAIN["microbatches"],
+            tokens_per_microbatch_and_data_rank=PP_MAIN["seq"],
+            setup={"param_dtype": "float32", "dtype": "bfloat16",
+                   "remat": "full" if PP_MAIN["remat"] else "none",
+                   "optimizer": "AdamW",
+                   "backend": backend,
+                   "device": str(ctx.device) + (
+                       " (shared)" if backend == "gloo" else "")},
+            steps=steps, ms_per_step=1e3 * walls[1],
+            ms_per_step_is_of="step 2, after a warm-up step, no profiler",
+            ms_per_step_all=[1e3 * w for w in walls],
+            ms_per_step_is=(
+                "two ranks time-share one card; every carry and cotangent "
+                "crosses loopback TCP through host memory: no pipeline "
+                "throughput" if backend == "gloo"
+                else f"one card per rank over {backend}"),
+            p2p_per_step=p2p[1],
+            p2p_share_of_step=p2p[1]["seconds"] / walls[1],
+            profiled_step_ms=1e3 * walls[2], **device,
+            build_seconds=build_s,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            counters=got)
+        del trainer, engine, params
+        free()
+    finally:
+        shutdown_distributed()
+
+
+def phase_pp_train(backend="gloo", ranks=2, timeout_s=PP_CHILD_TIMEOUT_S):
+    """Phase 15 in the parent: the one-process reference, then ``ranks``
+    child processes of this script; their lines are checked and
+    re-emitted. Returns the launches of the pipeline runs (all ranks)."""
+    import gc
+    import shutil
+    import tempfile
+
+    mode = compute_mode()
+    if backend == "gloo" and mode.lower().startswith("exclusive"):
+        raise AssertionError(
+            f"phase 15 needs {ranks} processes on the card; its compute "
+            f"mode is {mode}")
+    if ranks % 2:
+        raise ValueError(f"phase 15 runs pp 2: {ranks} ranks")
+    t0 = time.perf_counter()
+    ref = pp_reference(ranks // 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp()
+    try:
+        lines = _spawn_ranks("--pp-worker", ranks, backend, timeout_s,
+                             extra=(tmp,))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tags = tuple(PP_COMPARE_SCHEDULES) + ("resume", "Trainer.run_step")
+    runs = {tag: [next(o for o in lines[r] if o.get("entry") == tag)
+                  for r in range(ranks)] for tag in tags}
+    rel = {}
+    for tag in PP_COMPARE_SCHEDULES:
+        for r, o in enumerate(runs[tag]):
+            if o["steps"] != runs[tag][0]["steps"]:
+                raise AssertionError(f"pp ranks disagree in {tag}")
+        steps = runs[tag][0]["steps"]
+        rel[tag] = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                     for k in ("loss", "grad_norm")}
+                    for g, w in zip(steps, ref)]
+        bad = [(i, k, v) for i, d in enumerate(rel[tag])
+               for k, v in d.items() if v > PP_TRAIN_TOL]
+        if len(steps) != PP_COMPARE["steps"] or bad:
+            raise AssertionError(f"pp {tag} vs one process: {rel[tag]} "
+                                 f"(over the rule: {bad})")
+    for r, o in enumerate(runs["resume"]):
+        if (o["steps"] != [2] or not o["loss_equal"] or o["params_unequal"]
+                or o["hash"] != o["uninterrupted_hash"]):
+            raise AssertionError(f"pp rank {r}: the restart is not the "
+                                 f"uninterrupted run: {o}")
+    main = runs["Trainer.run_step"]
+    if any(o["steps"] != main[0]["steps"] for o in main):
+        raise AssertionError(f"pp ranks disagree in the main run: {main}")
+    launches = {}
+    for tag in tuple(PP_COMPARE_SCHEDULES) + ("Trainer.run_step",):
+        for r, o in enumerate(runs[tag]):
+            c = o["counters"]
+            if c["plain_calls"] or c["eager_calls"]:
+                raise AssertionError(f"pp rank {r} {tag}: plain calls {c}")
+            for k in ("flash_fwd", "moe_ffn_aligned"):
+                if c[k] <= 0:
+                    raise AssertionError(f"pp rank {r} {tag}: no {k}: {c}")
+            if c["flash_bwd_dq"] + c["flash_bwd_fused"] <= 0:
+                raise AssertionError(f"pp rank {r} {tag}: no flash "
+                                     f"backward: {c}")
+            if c["p2p_calls"] <= 0:
+                raise AssertionError(f"pp rank {r} {tag}: no transfer: {c}")
+            for k in KERNEL_NAMES:
+                launches[k] = launches.get(k, 0) + c[k]
+    say(phase="pp_train", entry="summary", ranks=ranks, backend=backend,
+        torch=torch.__version__, reference=ref, reference_seconds=ref_s,
+        compare={tag: {"pp": runs[tag][0]["steps"], "rel_diff": rel[tag]}
+                 for tag in PP_COMPARE_SCHEDULES},
+        tolerance=PP_TRAIN_TOL,
+        resume={k: runs["resume"][0][k] for k in
+                ("loss", "loss_equal", "hash", "part_seconds",
+                 "resume_seconds")},
+        losses=[s_["loss"] for s_ in main[0]["steps"]],
+        ms_per_step=[m["ms_per_step"] for m in main],
+        p2p_share_of_step=[m["p2p_share_of_step"] for m in main],
+        stage_device_ms=[m["stage_device_ms"] for m in main],
+        peak_memory_gb=[m["peak_memory_bytes"] / 1e9 for m in main],
+        ranks_equal=True, launches=launches,
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
 def main():
     import gc
 
@@ -6089,7 +6607,8 @@ def main():
                   phase_full_width_train_moe,
                   phase_full_width_train_bf16, phase_cp_train,
                   phase_dp_train, phase_tp_train, phase_ep_train,
-                  phase_mesh_train, phase_example, phase_example_full):
+                  phase_mesh_train, phase_example, phase_example_full,
+                  phase_pp_train):
         for name, n in timed(phase).items():
             launches[name] += n
         gc.collect()
@@ -6125,6 +6644,15 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                     sys.argv[5], sys.argv[6], sys.argv[7])
+    elif sys.argv[1:2] == ["--pp-worker"]:
+        pp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--pp-only"]:
+        # phase 15 alone: python3 chip_smoke.py --pp-only nccl 4
+        print(phase_device(), flush=True)
+        phase_build()
+        say(phase="pp_train", launches=phase_pp_train(
+            sys.argv[2], int(sys.argv[3]), timeout_s=600))
     elif sys.argv[1:2] == ["--mesh-reference"]:
         mesh_reference(sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--example-only"]:

@@ -288,18 +288,45 @@ all_to_all_rows.host_staged_bytes = 0
 all_to_all_rows.seconds = 0.0
 
 
+def copy_pairs(rows: np.ndarray) -> tuple[np.ndarray, int]:
+    """Host row indices ``rows`` (a row may repeat) → ``(pairs, copies)``:
+    ``copies`` is the most times a row repeats, and ``pairs[i] = rows[i] ·
+    copies + j`` for the ``j``-th occurrence of ``rows[i]``, so no pair
+    repeats (the ``send`` that :func:`exchange_rows` takes)."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size == 0:
+        return rows, 1
+    order = np.argsort(rows, kind="stable")
+    srt = rows[order]
+    start = np.r_[0, np.flatnonzero(srt[1:] != srt[:-1]) + 1]
+    run = np.repeat(start, np.diff(np.r_[start, srt.size]))
+    occ = np.empty_like(rows)
+    occ[order] = np.arange(srt.size) - run
+    copies = int(occ.max()) + 1
+    return rows * copies + occ, copies
+
+
 def exchange_rows(x: torch.Tensor, send: torch.Tensor, send_splits,
-                  recv_splits, order: torch.Tensor, group) -> torch.Tensor:
-    """Rows ``x[send]`` to the group's ranks in rank order,
-    ``send_splits[r]`` of them to rank ``r`` (``send`` may name a row
-    more than once: it goes to each such rank); ``recv_splits[r]`` rows
-    come from rank ``r``, and the received rows, concatenated in rank
-    order, are returned in ``order`` (``recv[order]``). Differentiable:
-    the gradient goes home through the mirrored all-to-all, and a row sent
-    to several ranks sums their gradients. ``send``, ``order``: int64 on
-    ``x``'s device; splits: host ints."""
-    rows = all_to_all_rows(x.index_select(0, send), recv_splits, send_splits,
-                           group)
+                  recv_splits, order: torch.Tensor, group,
+                  copies: int = 1) -> torch.Tensor:
+    """Rows of ``x`` to the group's ranks in rank order, ``send_splits[r]``
+    of them to rank ``r``; ``recv_splits[r]`` rows come from rank ``r``,
+    and the received rows, concatenated in rank order, are returned in
+    ``order`` (``recv[order]``). ``send`` names rows of ``x`` repeated
+    ``copies`` times (row ``i``'s copy ``j`` is ``i · copies + j``;
+    :func:`copy_pairs`), each at most once: a row sent to several ranks
+    goes out as several copies. Differentiable: the gradient goes home
+    through the mirrored all-to-all, and the gather's backward is a
+    collision-free gather and one sum over each row's copies in a fixed
+    order (as ``ops/moe.py`` ``pair_rows``), the same bits on every run,
+    where a gather by repeated rows adds their gradients by atomics in the
+    order they land on a card. ``send``, ``order``: int64 on ``x``'s
+    device; splits: host ints."""
+    n = x.shape[0]
+    rows = (x if copies == 1 else x.unsqueeze(1).expand(
+        n, copies, *x.shape[1:]).reshape(n * copies, *x.shape[1:]))
+    rows = all_to_all_rows(rows.index_select(0, send), recv_splits,
+                           send_splits, group)
     return rows.index_select(0, order)
 
 
@@ -487,6 +514,6 @@ def allgather_variadic(x, group=None) -> list[np.ndarray]:
 
 __all__ = ["BUCKET_BYTES", "ReduceOp", "all_reduce_sum", "all_to_all_rows",
            "allgather_counts", "allgather_variadic", "broadcast",
-           "exchange_rows", "gather_from_group", "host_allgather_object",
+           "copy_pairs", "exchange_rows", "gather_from_group", "host_allgather_object",
            "host_allreduce", "host_allreduce_tree", "host_broadcast_object",
            "split_to_group", "staging_buffer", "stages_through_host"]

@@ -15,8 +15,12 @@ this rank's index on it.
 A mesh of one rank needs no process group and holds no ``DeviceMesh``:
 every group is ``None`` and every coordinate 0. Of the axes, ``dp_r``,
 ``dp_s``, ``cp_s``, ``cp_r`` and ``tp`` can be larger than 1, and so can
-the expert-shard overlay ``ep_shard``; ``pp`` larger than 1 raises
-``NotImplementedError`` naming the ROADMAP item that ports it. Ranks along
+the expert-shard overlay ``ep_shard``. ``pp`` may be larger than 1 beside
+``dp_r`` and ``dp_s`` (the pipeline engine, ``loop/pipeline_driver.py``,
+owns the stages of this rank's ``pp`` coordinate); beside ``cp_s``,
+``cp_r``, ``tp`` or ``ep_shard`` it raises ``NotImplementedError`` naming
+the ROADMAP item that ports it, before any process group is asked for.
+Ranks along
 ``tp`` and ``cp_r`` hold the same rows and sequence chunk: ``tp`` cuts the
 parameters (``parallel/plan.py``), ``cp_r`` replicates everything.
 
@@ -54,8 +58,8 @@ MESH_AXIS_NAMES: tuple[str, ...] = (
     AXIS_TP,
 )
 
-# axes that may not exceed 1 yet, with the ROADMAP item that ports each
-_UNPORTED_AXES = {"pp": "A8"}
+# axes that may not exceed 1 beside pp > 1 yet (ROADMAP A8.2)
+_NOT_WITH_PP = ("cp_shard", "cp_replicate", "tp", "ep_shard")
 
 
 def _suffix_axes_covering(
@@ -135,11 +139,14 @@ class MeshParameters:
         ``["cpu"] * world_size`` — and this rank takes ``devices[rank]``.
         More than one rank needs the default process group of exactly
         ``world_size`` ranks (``init_distributed``)."""
-        for name, item in _UNPORTED_AXES.items():
-            if getattr(self, name) > 1:
+        if self.pp > 1:
+            beside = [f"{n}={getattr(self, n)}" for n in _NOT_WITH_PP
+                      if getattr(self, n) > 1]
+            if beside:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: meshes with {name} > 1 "
-                    f"are not ported yet (ROADMAP {item})")
+                    f"pp={self.pp} beside {', '.join(beside)}: pipeline "
+                    f"parallelism with context, tensor or expert "
+                    f"parallelism is not ported yet (ROADMAP A8.2)")
         rank = 0
         if self.world_size > 1:
             if not dist.is_initialized():
@@ -240,6 +247,12 @@ class MeshContext:
     @property
     def pp_size(self) -> int:
         return self.params.pp
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's ``pp`` coordinate: the pipeline rank whose stages
+        it runs."""
+        return self.coordinate(AXIS_PP)
 
     @property
     def cp_size(self) -> int:

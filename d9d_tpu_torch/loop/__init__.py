@@ -14,7 +14,7 @@ from d9d_tpu_torch.loop.control.providers import (
     ModelProvider,
     OptimizerProvider,
 )
-from d9d_tpu_torch.loop.control.task import TrainTask
+from d9d_tpu_torch.loop.control.task import PipelineTrainTask, TrainTask
 from d9d_tpu_torch.loop.generate import generate
 from d9d_tpu_torch.loop.serve import ContinuousBatcher, ServeStats
 from d9d_tpu_torch.loop.tasks import CausalLMTask
@@ -30,6 +30,7 @@ __all__ = [
     "DatasetProvider",
     "ModelProvider",
     "OptimizerProvider",
+    "PipelineTrainTask",
     "PiecewiseLRConfig",
     "ServeStats",
     "StatefulDataLoader",

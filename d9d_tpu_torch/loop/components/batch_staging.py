@@ -2,7 +2,7 @@
 ``d9d_tpu/loop/components/batch_staging.py``).
 
 :func:`split_microbatches` cuts a prepared global batch into a list of
-microbatches; :func:`stage_microbatches` does that and moves every leaf to
+microbatches (``core/tree_sharding.py`` ``shard_tree``); :func:`stage_microbatches` does that and moves every leaf to
 the device (from pinned memory, asynchronously, on a CUDA device). Every
 rank reads the same global batch and keeps its own part of each
 microbatch, the layout of the JAX package's ``batch_sharding`` (batch dim
@@ -22,6 +22,12 @@ over ``dp_r x dp_s``, sequence dim over ``cp_s``):
 
 import numpy as np
 import torch
+
+from d9d_tpu_torch.core.tree_sharding import (
+    SpecReplicate,
+    SpecShard,
+    shard_tree,
+)
 
 
 def check_cp_seq_len(seq_len: int | None, cp_size: int) -> None:
@@ -44,20 +50,22 @@ def split_microbatches(prepared: dict, *, num_microbatches: int,
     if m % dp_size != 0:
         raise ValueError(
             f"microbatch_size {m} not divisible by dp_size {dp_size}")
-    m_loc = m // dp_size
-    stacked = {}
+    arrays = {}
     for key, x in prepared.items():
         x = np.asarray(x)
         if x.shape[0] != n * m:
             raise ValueError(
                 f"batch leading dim {x.shape[0]} != global batch {n * m}")
-        x = x.reshape(n, m, *x.shape[1:])
-        x = x[:, dp_rank * m_loc:(dp_rank + 1) * m_loc]
-        if cp_size > 1 and x.ndim >= 3 and x.shape[2] == seq_len:
-            t_loc = seq_len // cp_size
-            x = x[:, :, cp_rank * t_loc:(cp_rank + 1) * t_loc]
-        stacked[key] = x
-    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+        arrays[key] = x
+    rows = SpecShard(0)
+    out = [shard_tree(mb, rows, dp_size)[dp_rank]
+           for mb in shard_tree(arrays, rows, n)]
+    if cp_size > 1:
+        # dim 1 of a leaf is its sequence dim once the rows are cut
+        spec = {k: SpecShard(1) if x.ndim >= 2 and x.shape[1] == seq_len
+                else SpecReplicate() for k, x in arrays.items()}
+        out = [shard_tree(mb, spec, cp_size)[cp_rank] for mb in out]
+    return out
 
 
 def host_microbatches(prepared: dict, *, num_microbatches: int,

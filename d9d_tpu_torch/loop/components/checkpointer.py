@@ -258,6 +258,9 @@ class StateCheckpointer:
             tmp.mkdir(parents=True)
             with open(tmp / META_NAME, "w") as fh:
                 json.dump(meta, fh)
+        # DCP's writer makes the directory on every rank: none may start
+        # before rank 0 has cleared and made it
+        self._barrier()
         kwargs = dict(checkpoint_id=str(tmp), **self._dcp_kwargs())
         if self.async_save:
             staged = _map_tensors(_stage, arrays)

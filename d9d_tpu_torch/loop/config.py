@@ -2,9 +2,11 @@
 
 A dataclass with the JAX ``TrainerConfig``'s field names and defaults.
 Unknown fields are refused, as the JAX model's ``extra="forbid"`` refuses
-them. Features of the JAX trainer that this port does not have yet raise
-``NotImplementedError`` when a field turns them on: the pipeline schedule,
-profiling, the hang watchdog, the anomaly guard, telemetry sinks and the
+them. ``pipeline`` takes a schedule config (``pipelining/factory.py``) or a
+dict with its ``type``, kept as the config; ``None`` means GPipe when the
+mesh has ``pp > 1``, as in JAX. Features of the JAX trainer that this port
+does not have yet raise ``NotImplementedError`` when a field turns them
+on: profiling, the hang watchdog, the anomaly guard, telemetry sinks and the
 metrics endpoint, the numerics plane, the pipeline timeline, ZeRO sharding,
 the split optimizer update and the HBM budget of a resharding restore.
 Checkpointing (``checkpoint_dir``, ``loop/components/checkpointer.py``)
@@ -84,8 +86,11 @@ class TrainerConfig:
                      "total_steps", "log_every"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.pipeline is not None:
+            from d9d_tpu_torch.pipelining.factory import schedule_config
+
+            self.pipeline = schedule_config(self.pipeline)
         unported = {
-            "pipeline": self.pipeline is not None,
             "profile_dir": self.profile_dir is not None,
             "init_timeout_s": self.init_timeout_s is not None,
             "step_timeout_s": self.step_timeout_s is not None,

@@ -1,8 +1,9 @@
 """Provider protocols wiring user code into the trainer (counterpart of
 ``d9d_tpu/loop/control/providers.py``).
 
-``ModelProvider.build_module`` receives the mesh context and builds the
-module ON its device — the meta device when the trainer's model factory
+``ModelProvider.build_module`` receives the mesh context (and, under
+pipeline parallelism, the ``stage`` to build) and builds the module ON its
+device — the meta device when the trainer's model factory
 builds a sharded model (``loop/model_factory.py``), which then
 materializes it. ``ModelProvider.build_plan`` names the parallelism plan
 (``parallel/plan.py``).
@@ -18,14 +19,21 @@ from torch import nn
 from d9d_tpu_torch.core.mesh import MeshContext
 from d9d_tpu_torch.optim.adamw import AdamW
 from d9d_tpu_torch.parallel.plan import ParallelPlan, replicate_plan
+from d9d_tpu_torch.pipelining.stage_info import PipelineStageInfo
+
+WHOLE_MODEL = PipelineStageInfo()
 
 
 class ModelProvider(abc.ABC):
     @abc.abstractmethod
-    def build_module(self, ctx: MeshContext) -> nn.Module:
+    def build_module(self, ctx: MeshContext,
+                     stage: PipelineStageInfo = WHOLE_MODEL) -> nn.Module:
         """The model, its parameters on ``ctx.device``. Random weights
         come from a seed the module keeps as ``seed`` (the sharded init
-        draws from it)."""
+        draws from it). ``stage``: the pipeline stage to build (the
+        pipeline engine passes it; the default is the whole model, and a
+        provider that trains without pipelining may leave the keyword
+        out)."""
 
     def build_plan(self, ctx: MeshContext) -> ParallelPlan:
         """The parallelism plan. Unlike the JAX provider's abstract method

@@ -1,5 +1,6 @@
-"""User-facing task protocol (counterpart of
-``d9d_tpu/loop/control/task.py`` ``TrainTask``).
+"""User-facing task protocols (counterpart of
+``d9d_tpu/loop/control/task.py`` ``TrainTask`` and
+``PipelineTrainTask``).
 
 The user supplies (1) host-side batch preparation and (2) the
 per-microbatch loss. The weighted-loss contract is the JAX package's:
@@ -46,3 +47,35 @@ class TrainTask(abc.ABC):
     def update_metrics(self, metric_objs: dict[str, Any],
                        stats: dict[str, Any]) -> None:
         """Feed windowed host statistics into ``metrics()`` objects."""
+
+
+class PipelineTrainTask(TrainTask):
+    """A :class:`TrainTask` that can also drive a pipeline schedule: what
+    part of a microbatch flows from stage to stage (the carry), what every
+    stage needs (kwargs), what only the loss needs (state), and how the
+    last stage turns activations into a weighted loss. Where the JAX
+    methods take ``(module, params, ...)`` these take the stage module,
+    which holds its parameters; the stage's init is the module's own
+    (``ModelProvider.build_module(ctx, stage=...)``), so there is no
+    ``stage_init``."""
+
+    @abc.abstractmethod
+    def sample_microbatch(self, microbatch_size: int,
+                          seq_len: int) -> dict:
+        """A zero-filled microbatch of :meth:`prepare_batch`'s structure
+        (host tensors): the first microbatch of the forward chain that
+        gives every stage's carry shape."""
+
+    @abc.abstractmethod
+    def split_microbatch(self, microbatch: dict) -> tuple[Any, Any, Any]:
+        """→ ``(first_stage_carry, per_stage_kwargs, last_stage_state)``."""
+
+    @abc.abstractmethod
+    def stage_forward(self, module: nn.Module, carry: Any, kwargs: Any) -> Any:
+        """A stage that is not the last: carry in → carry out."""
+
+    @abc.abstractmethod
+    def last_stage_loss(
+        self, module: nn.Module, carry: Any, kwargs: Any, state: Any
+    ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+        """The last stage: → ``(loss_sum, weight, metrics)``."""

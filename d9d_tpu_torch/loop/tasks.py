@@ -1,16 +1,16 @@
 """Built-in task implementations (counterpart of ``d9d_tpu/loop/tasks.py``):
-``CausalLMTask``."""
+``CausalLMTask``, with the pipeline surface of ``PipelineTrainTask``."""
 
 import numpy as np
 import torch
 from torch import nn
 
-from d9d_tpu_torch.loop.control.task import TrainTask
+from d9d_tpu_torch.loop.control.task import PipelineTrainTask
 from d9d_tpu_torch.nn.moe import collect_tokens_per_expert
 from d9d_tpu_torch.ops.linear_ce import LM_IGNORE_INDEX
 
 
-class CausalLMTask(TrainTask):
+class CausalLMTask(PipelineTrainTask):
     """Next-token prediction with token-count loss weighting.
 
     Batches hold ``input_ids [B, T+1]`` (and optionally ``loss_mask
@@ -58,3 +58,26 @@ class CausalLMTask(TrainTask):
             metrics["task/moe_load_max_frac"] = float(
                 counts.max() / max(counts.sum(), 1.0))
         return metrics
+
+    # -- pipeline surface (PipelineTrainTask) --------------------------
+    # carry = token ids on stage 0, hidden states after; positions ride
+    # kwargs (every stage's RoPE needs them); labels ride last-stage state.
+    # As in JAX, the pipeline's statistics are the last stage's: no MoE
+    # load vector.
+
+    def sample_microbatch(self, microbatch_size: int, seq_len: int) -> dict:
+        z = torch.zeros((microbatch_size, seq_len), dtype=torch.int64)
+        return {"tokens": z, "labels": z,
+                "positions": z.to(torch.int32)}
+
+    def split_microbatch(self, mb: dict):
+        return (mb["tokens"], {"positions": mb["positions"]},
+                {"labels": mb["labels"]})
+
+    def stage_forward(self, module: nn.Module, carry, kwargs):
+        return module(carry, kwargs["positions"])
+
+    def last_stage_loss(self, module: nn.Module, carry, kwargs, state):
+        per_token = module(carry, kwargs["positions"], state["labels"])
+        weight = (state["labels"] != LM_IGNORE_INDEX).sum().to(torch.float32)
+        return per_token.sum(), weight, {"tokens": weight}

@@ -1,7 +1,17 @@
 """Trainer: wires providers into the step and runs the loop (counterpart of
 ``d9d_tpu/loop/train.py``), on one device or over a mesh of processes
-(``dp_r x dp_s x cp_s x cp_r x tp``), without pipeline parallelism or
+(``dp_r x dp_s x cp_s x cp_r x tp``, or ``pp x dp_r x dp_s``), without
 PEFT.
+
+With ``pp > 1`` the trainer steps through a
+:class:`~d9d_tpu_torch.loop.pipeline_driver.PipelineTrainEngine` (as the
+JAX trainer does, ``d9d_tpu/loop/train.py:117-135``): this rank builds
+and trains the stages of its ``pp`` coordinate under
+``config.pipeline`` (GPipe by default), checkpoints hold every stage's
+parameters and optimizer state under their global names (each rank its
+own stages'), ``export`` writes each stage group's parameters through the
+pipeline-parallel writer into one index, and ``loss_on_batch`` runs a
+forward-only program. ``self.module`` is then ``None``.
 
 The model comes from the provider through the model factory
 (``loop/model_factory.py``) and the provider's plan
@@ -107,8 +117,6 @@ class Trainer:
     ):
         if peft_method is not None:
             raise NotImplementedError("PEFT is not ported yet")
-        if ctx.pp_size > 1:
-            raise NotImplementedError("pipeline parallelism is not ported yet")
         self.ctx = ctx
         self.device = ctx.device
         self.config = config
@@ -122,6 +130,27 @@ class Trainer:
         self._reduce_group = (ctx.group(*ctx.data_axes)
                               if ctx.axis_size(*ctx.data_axes) > 1 else None)
 
+        lr = learning_rate if learning_rate is not None else config.learning_rate
+        self.pp_engine = None
+        if ctx.pp_size > 1:
+            from d9d_tpu_torch.loop.pipeline_driver import PipelineTrainEngine
+
+            self.module = self.optimizer = None
+            self.pp_engine = PipelineTrainEngine(
+                ctx=ctx, schedule=config.pipeline,
+                model_provider=model_provider, task=task,
+                optimizer_provider=optimizer_provider, learning_rate=lr,
+                batch_maths=self.batch_maths, seq_len=config.seq_len,
+                max_grad_norm=config.max_grad_norm,
+                reduce_group=self._reduce_group)
+            self.step_fn = self.pp_engine.step
+        else:
+            self._build_flat(model_provider, optimizer_provider, lr)
+        self._init_loop(config, dataset_provider)
+
+    def _build_flat(self, model_provider, optimizer_provider, lr) -> None:
+        """The model, optimizer and step of a mesh without ``pp``."""
+        ctx, config = self.ctx, self.config
         plan = model_provider.build_plan(ctx)
         self.module = build_model(model_provider, ctx, plan,
                                   validate=self._validate_module)
@@ -137,10 +166,7 @@ class Trainer:
         if ctx.world_size > 1 and not sharded:
             with torch.no_grad():
                 broadcast(list(self.module.parameters()))
-        self.optimizer = optimizer_provider.build(
-            self.module.parameters(),
-            learning_rate if learning_rate is not None else config.learning_rate,
-        )
+        self.optimizer = optimizer_provider.build(self.module.parameters(), lr)
         self.step_fn = build_train_step(
             module=self.module,
             task=self.task,
@@ -150,6 +176,8 @@ class Trainer:
             reduce_group=self._reduce_group,
             sum_groups=sum_groups,
         )
+
+    def _init_loop(self, config, dataset_provider) -> None:
         self.dataset_provider = dataset_provider
         self.data_loader = None  # built fresh per train() call
         self._prefetcher: BatchPrefetcher | None = None
@@ -227,6 +255,9 @@ class Trainer:
         """The live arrays a checkpoint holds, as DCP saves and loads them
         in place: the module's ``state_dict()`` and the optimizer's
         ``checkpoint_state()``, its moments keyed by parameter name."""
+        if self.pp_engine is not None:
+            return {"model": self.pp_engine.state_dict(),
+                    "optimizer": self.pp_engine.optimizer_state()}
         if not hasattr(self.optimizer, "checkpoint_state"):
             raise TypeError(
                 f"{type(self.optimizer).__name__} has no checkpoint_state(): "
@@ -237,6 +268,9 @@ class Trainer:
         return {"model": self.module.state_dict(), "optimizer": opt}
 
     def _load_optimizer_arrays(self, opt: dict) -> None:
+        if self.pp_engine is not None:
+            self.pp_engine.load_optimizer_state(opt)
+            return
         names = self._optimizer_param_names()
         self.optimizer.load_state_dict(
             {k: ([v[n] for n in names] if isinstance(v, dict) else v)
@@ -414,20 +448,38 @@ class Trainer:
         it is collective: every rank calls it, each sharded parameter is
         put together whole on rank 0 alone, one at a time, and rank 0
         writes (``model_state/io/module.py`` ``save_params``)."""
-        from d9d_tpu_torch.model_state.io.module import save_params
+        from d9d_tpu_torch.model_state.io.module import (
+            save_params,
+            save_params_pipeline_parallel,
+        )
 
+        if self.pp_engine is not None:
+            ctx = self.ctx
+            # the stage group's rank at data coordinate 0 writes
+            save_params_pipeline_parallel(
+                out_dir, self.merged_params(), mapper=mapper,
+                writer_rank=ctx.pp_rank,
+                writer=ctx.pp_rank * (ctx.world_size // ctx.pp_size),
+                shard_size_gb=shard_size_gb)
+            return
         save_params(out_dir, self.merged_params(), mapper=mapper,
                     shard_size_gb=shard_size_gb)
 
     def merged_params(self) -> dict[str, torch.Tensor]:
         """The parameters to export: the module's own (each rank's pieces
-        of the sharded ones). PEFT and pipeline stages, which the JAX
-        trainer merges here, raise where the trainer is built."""
+        of the sharded ones), or under ``pp`` this rank's stages' under
+        their global names. PEFT, which the JAX trainer merges here,
+        raises where the trainer is built."""
+        if self.pp_engine is not None:
+            return self.pp_engine.named_parameters()
         return dict(self.module.named_parameters())
 
     def loss_on_batch(self, raw_batch: dict) -> float:
         """Weighted loss of ``raw_batch`` under the current parameters,
-        forward only."""
+        forward only (under ``pp``: a forward-only program over the
+        stages)."""
+        if self.pp_engine is not None:
+            return float(self.pp_engine.eval_loss(self._stage_batch(raw_batch)))
         if self._eval_fn is None:
             self._eval_fn = build_eval_step(module=self.module, task=self.task,
                                             reduce_group=self._reduce_group)

@@ -80,13 +80,13 @@ def cut_groups(p: torch.Tensor) -> tuple:
                  for _, mesh_dim in shard_cuts(p))
 
 
-def global_grad_norm(grads: list[torch.Tensor],
-                     groups: "list[tuple] | None" = None) -> torch.Tensor:
-    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``) of the
-    gradients ``grads``, each this rank's piece over the process groups
-    ``groups[i]`` (:func:`cut_groups`; ``()`` or ``None``: whole on every
-    rank): the squares of the pieces cut over the same groups are summed
-    over each of those groups in turn, once."""
+def global_sq_norm(grads: list[torch.Tensor],
+                   groups: "list[tuple] | None" = None) -> torch.Tensor:
+    """``Σ_leaves Σ g²`` in fp32 of the gradients ``grads``, each this
+    rank's piece over the process groups ``groups[i]`` (:func:`cut_groups`;
+    ``()`` or ``None``: whole on every rank): the squares of the pieces cut
+    over the same groups are summed over each of those groups in turn,
+    once."""
     by_groups: dict[tuple, list[torch.Tensor]] = {}
     for g, gr in zip(grads, groups or [()] * len(grads)):
         by_groups.setdefault(gr, []).append(g)
@@ -96,7 +96,14 @@ def global_grad_norm(grads: list[torch.Tensor],
         for group in gr:
             all_reduce_sum([sq], group)
         total = sq if total is None else total + sq
-    return total.sqrt()
+    return total
+
+
+def global_grad_norm(grads: list[torch.Tensor],
+                     groups: "list[tuple] | None" = None) -> torch.Tensor:
+    """``sqrt(Σ_leaves Σ g²)`` in fp32 (optax ``global_norm``):
+    :func:`global_sq_norm`'s square root."""
+    return global_sq_norm(grads, groups).sqrt()
 
 
 def _set_grad(p: torch.Tensor, g: torch.Tensor) -> None:

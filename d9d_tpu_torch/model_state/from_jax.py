@@ -22,7 +22,11 @@ parameters of the port's counterpart module (a whole
   own dtype.
 
 It raises on any key of ``flat`` that is left over and on any parameter of
-the model that got no value. Which parameters are transposed flax kernels
+the model that got no value. Pipeline stages: a stage module keeps the
+whole model's names, so JAX's per-stage tree (as its
+``PipelineTrainEngine.stages[s].params`` holds it) loads into the port's
+stage module as it is; :func:`stage_keys` picks a stage's keys out of a
+whole model's tree and :func:`load_jax_stage_params` fills every stage. Which parameters are transposed flax kernels
 is read from the one table of parameter layouts
 (``nn/logical_axes.py`` ``param_layouts``). A model that a plan sharded
 (``parallel/plan.py``) takes only this rank's piece of each sharded
@@ -121,6 +125,28 @@ def jax_param_map(model, keys) -> dict[str, list[str]]:
     if missing:
         raise KeyError(f"model parameters that got no value: {missing}")
     return out
+
+
+def _module_path(key: str) -> str:
+    return ".".join(f"layers.{p[len('layers_'):]}" if p.startswith("layers_")
+                    else p for p in key.split("/")[:-1])
+
+
+def stage_keys(model, flat: dict) -> dict:
+    """The entries of a whole model's flattened flax tree ``flat`` that
+    the parameters of ``model`` (a pipeline stage of it) take."""
+    flat = _strip_trainer_prefix(flat)
+    paths = {n.rsplit(".", 1)[0] if "." in n else ""
+             for n, _ in model.named_parameters()}
+    return {k: v for k, v in flat.items() if _module_path(k) in paths}
+
+
+def load_jax_stage_params(stages: dict, flats: dict) -> None:
+    """Fill each stage module (``stages``: stage id → module) from its
+    flattened flax tree (``flats``: stage id → JAX's per-stage tree or a
+    whole model's, cut by :func:`stage_keys`)."""
+    for s, module in stages.items():
+        load_jax_params(module, stage_keys(module, flats[s]))
 
 
 def load_jax_params(model, flat: dict) -> None:

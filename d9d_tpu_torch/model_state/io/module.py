@@ -32,8 +32,13 @@ from d9d_tpu_torch.model_state.io.safetensors_format import SafetensorsFile
 from d9d_tpu_torch.model_state.io.writer import (
     write_model_state_distributed,
     write_model_state_local,
+    write_model_state_pipeline_parallel,
 )
-from d9d_tpu_torch.model_state.mapper.abc import ModelStateMapper
+from d9d_tpu_torch.model_state.mapper.abc import (
+    ModelStateMapper,
+    StateDict,
+    StateGroup,
+)
 from d9d_tpu_torch.model_state.mapper.compose import ModelStateMapperParallel
 from d9d_tpu_torch.model_state.mapper.leaf import ModelStateMapperIdentity
 from d9d_tpu_torch.parallel.shards import (
@@ -97,6 +102,64 @@ def save_params(
         write_model_state_local(dest_dir, mapper,
                                 param_state_generator(named),
                                 shard_size_gb=shard_size_gb)
+
+
+class _StageMapper(ModelStateMapper):
+    """The groups of ``mapper`` whose inputs are all in ``names``."""
+
+    def __init__(self, mapper: ModelStateMapper, names):
+        self._mapper = mapper
+        names = set(names)
+        self._groups = frozenset(g for g in mapper.state_dependency_groups()
+                                 if g.inputs <= names)
+
+    def state_dependency_groups(self) -> frozenset[StateGroup]:
+        return self._groups
+
+    def apply(self, group: StateDict) -> StateDict:
+        return self._mapper.apply(group)
+
+
+def save_params_pipeline_parallel(
+    dest_dir: Path,
+    params,
+    mapper: ModelStateMapper | None = None,
+    *,
+    writer_rank: int,
+    writer: int,
+    shard_size_gb: float = 4.0,
+) -> None:
+    """Save the parameters of this rank's pipeline stages (collective over
+    every rank): each stage group's writer (global rank ``writer``, one
+    rank per ``pp`` coordinate; ``writer_rank`` its pp rank) puts each
+    parameter together whole (``gather_whole`` over the stage's ranks that
+    cut it) and streams its stages' parameters through the groups of
+    ``mapper`` whose inputs they hold; one index merges the files. Every
+    group of ``mapper`` must lie within one rank's stages (checked: the
+    writers' groups must add up to all of them)."""
+    from d9d_tpu_torch.core.collectives import host_allgather_object
+
+    named = named_params(params)
+    is_local_writer = dist.get_rank() == writer
+    local = _StageMapper(mapper if mapper is not None
+                         else identity_mapper_from_names(named), named)
+    covered = host_allgather_object(
+        (writer_rank, sorted(tuple(sorted(g.inputs))
+                             for g in local.state_dependency_groups()))
+        if is_local_writer else None)
+    if mapper is not None:
+        groups = {g for item in covered if item is not None
+                  for g in item[1]}
+        want = {tuple(sorted(g.inputs))
+                for g in mapper.state_dependency_groups()}
+        if groups != want:
+            raise ValueError(
+                f"mapper groups that no pipeline stage holds whole: "
+                f"{sorted(want - groups)[:4]}")
+    states = ((n, gather_whole(p, dst=writer)) for n, p in named.items())
+    write_model_state_pipeline_parallel(
+        dest_dir, local, states, writer_rank=writer_rank,
+        is_local_writer=is_local_writer, shard_size_gb=shard_size_gb)
 
 
 def _check_shape(name: str, got, want: torch.Tensor) -> None:
@@ -174,4 +237,4 @@ def load_params(
 
 __all__ = ["identity_mapper_from_names", "identity_mapper_from_params",
            "load_params", "named_params", "param_state_generator",
-           "read_piece", "save_params"]
+           "read_piece", "save_params", "save_params_pipeline_parallel"]

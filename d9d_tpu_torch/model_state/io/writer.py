@@ -9,8 +9,8 @@ through a key → groups index), and ``_publish`` renames the spooled files
 into the final ``model-XXXXX-of-YYYYY.safetensors`` numbering and writes
 ``model.safetensors.index.json``. Two modes: local (one process) and
 distributed (every rank streams the names, one rank holds the tensors and
-writes). The pipeline-parallel mode raises until pipeline parallelism is
-ported.
+writes) and pipeline-parallel (each stage group writes its own states,
+one index merges them).
 """
 
 import warnings
@@ -191,12 +191,30 @@ def write_model_state_distributed(
     dist.barrier()
 
 
-def write_model_state_pipeline_parallel(*args, **kwargs) -> None:
-    """Each pipeline stage group writes its own states (the JAX package's
-    third mode): raises until pipeline parallelism is ported."""
-    raise NotImplementedError(
-        "write_model_state_pipeline_parallel: pipeline parallelism is not "
-        "ported yet (ROADMAP A8)")
+def write_model_state_pipeline_parallel(
+    dest_dir: Path,
+    mapper: ModelStateMapper,
+    state_generator: Iterable[tuple[str, "torch.Tensor | None"]],
+    writer_rank: int,
+    is_local_writer: bool,
+    shard_size_gb: float = 4.0,
+) -> None:
+    """Each pipeline stage group writes its own states; the indices are
+    merged (the JAX package's third mode). ``mapper`` covers the stage
+    group's states; ``is_local_writer`` selects one process per stage
+    group (the others stream the names with ``None``); ``writer_rank``
+    must be unique among writers (the pp rank) so the spool names do not
+    collide. Collective: no rank returns before the index is written."""
+    from d9d_tpu_torch.core.collectives import host_allgather_object
+
+    index = _run_stream(dest_dir, mapper, state_generator, shard_size_gb,
+                        tag=str(writer_rank), writes=is_local_writer)
+    spooled = [ix for ix in host_allgather_object(index) if ix is not None]
+    mesh = dist.is_initialized()
+    if not mesh or dist.get_rank() == 0:
+        _publish(dest_dir, spooled)
+    if mesh:
+        dist.barrier()
 
 
 __all__ = ["write_model_state_distributed", "write_model_state_local",

@@ -2,14 +2,19 @@
 ``Qwen3DenseBackbone`` / ``Qwen3DenseCausalLM`` in
 ``d9d_tpu/models/qwen3/dense.py``).
 
-Single pipeline stage only (the whole model on one device); no
-activation-sharding pins and no numerics taps — those belong to the
-multi-device paths, which are not ported yet. ``remat`` with the ``"full"``
+A model may be one pipeline stage of a larger one (``stage``, default the
+whole model), as the JAX backbones are: the first stage owns the
+embedding and takes token ids, later stages take hidden states; each
+stage builds only its layers (``distribute_layers_for_pipeline_stage``)
+under their GLOBAL ids, so a stage's parameter names are the whole
+model's (``model.layers.<gid>...``) and checkpoints and exports do not
+depend on the stage layout; the last stage owns the final norm and the
+LM head. No activation-sharding pins and no numerics taps. ``remat`` with the ``"full"``
 policy recomputes each decoder layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nn.remat`` with no saved
 residuals); the JAX package's other policies are not ported and raise.
-Layer ``i`` is ``model.layers[i]``, the counterpart of the JAX tree's
-``layers_{i}``.
+Layer ``i`` is ``model.layers[i]`` (a :class:`LayerStack` keyed by global
+id), the counterpart of the JAX tree's ``layers_{i}``.
 
 Weights are created directly on the device, layer by layer, from one seeded
 ``torch.Generator`` — there is never a full copy on the host.
@@ -35,12 +40,44 @@ from d9d_tpu_torch.nn.norm import RMSNorm
 from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
 from d9d_tpu_torch.nn.sdpa.protocol import SdpaBackend
 from d9d_tpu_torch.ops import compute_rope_frequencies, make_rope_cos_sin
+from d9d_tpu_torch.pipelining.stage_info import (
+    PipelineStageInfo,
+    distribute_layers_for_pipeline_stage,
+)
+
+WHOLE_MODEL = PipelineStageInfo()
 
 
 def _make_generator(seed: int | None, device: torch.device):
     if seed is None or device.type == "meta":
         return None
     return torch.Generator(device=device).manual_seed(seed)
+
+
+class LayerStack(nn.Module):
+    """Decoder layers under their global ids: child ``str(gid)``, so
+    ``layers[gid]`` and the parameter names are the whole model's whatever
+    stage holds them. Iterates its layers in id order."""
+
+    def __init__(self, layers: dict):
+        super().__init__()
+        for gid, layer in layers.items():
+            self.add_module(str(gid), layer)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, gid: int) -> nn.Module:
+        return self._modules[str(gid)]
+
+
+def stage_layers(num_layers: int, stage: PipelineStageInfo, build) -> LayerStack:
+    """``build(gid)`` for every global layer id of ``stage``."""
+    return LayerStack({gid: build(gid) for gid in
+                       distribute_layers_for_pipeline_stage(num_layers, stage)})
 
 
 def run_decoder_layers(
@@ -84,6 +121,7 @@ class Qwen3DenseBackbone(nn.Module):
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
         generator: torch.Generator | None = None,
+        stage: PipelineStageInfo = WHOLE_MODEL,
     ):
         super().__init__()
         cfg = config
@@ -93,15 +131,17 @@ class Qwen3DenseBackbone(nn.Module):
                 f"recomputes whole layers (remat_policy='full')"
             )
         self.config = cfg
+        self.stage = stage
         self.decode_max_length = decode_max_length
         self.dtype = dtype
         dev = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
-        self.embed_tokens = TokenEmbedding(
-            cfg.vocab_ranges, cfg.hidden_size, **kw
-        )
-        self.layers = nn.ModuleList(
+        if stage.is_first:
+            self.embed_tokens = TokenEmbedding(
+                cfg.vocab_ranges, cfg.hidden_size, **kw
+            )
+        self.layers = stage_layers(cfg.num_layers, stage, lambda _: (
             DecoderLayer(
                 hidden_size=cfg.hidden_size,
                 num_heads=cfg.num_heads,
@@ -117,10 +157,9 @@ class Qwen3DenseBackbone(nn.Module):
                 norm_eps=cfg.norm_eps,
                 decode_max_length=decode_max_length,
                 **kw,
-            )
-            for _ in range(cfg.num_layers)
-        )
-        self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=dev)
+            )))
+        if stage.is_last:
+            self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps, device=dev)
         inv_freq, att_scale = compute_rope_frequencies(
             cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=dev
         )
@@ -143,13 +182,25 @@ class Qwen3DenseBackbone(nn.Module):
         mask: Optional[torch.Tensor] = None,
         cache: Optional[DecodeCache] = None,
     ) -> torch.Tensor:
-        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``
-        (see :func:`run_decoder_layers` for ``cache``)."""
-        x = self.embed_tokens(x)
-        cos, sin = make_rope_cos_sin(
-            positions, self.inv_freq, self.rope_attention_scale
-        )
-        return self.norm(run_decoder_layers(self, x, cos, sin, mask, cache))
+        """``x [B,T]`` token ids (first stage; hidden ``[B,T,E]`` on later
+        stages), ``positions [B,T]`` → hidden ``[B,T,E]``, normed on the
+        last stage (see :func:`run_decoder_layers` for ``cache``)."""
+        return stage_forward(self, x, positions, mask, cache)
+
+
+def stage_forward(backbone: nn.Module, x, positions, mask, cache):
+    """A backbone stage's forward: embed on the first stage (else take the
+    carry in the compute dtype), the stage's layers, the final norm on the
+    last stage."""
+    if backbone.stage.is_first:
+        x = backbone.embed_tokens(x)
+    else:
+        x = x.to(backbone.dtype)
+    cos, sin = make_rope_cos_sin(
+        positions, backbone.inv_freq, backbone.rope_attention_scale
+    )
+    x = run_decoder_layers(backbone, x, cos, sin, mask, cache)
+    return backbone.norm(x) if backbone.stage.is_last else x
 
 
 class Qwen3CausalLMBase(nn.Module):
@@ -168,7 +219,10 @@ class Qwen3CausalLMBase(nn.Module):
     and the sharded init (``loop/model_factory.py``) draws from ``seed``.
     ``sdpa=None`` builds the flash backend. ``param_dtype`` is the dtype
     parameters are held in (``None``: the compute ``dtype``; training
-    passes ``torch.float32``, the JAX package's default)."""
+    passes ``torch.float32``, the JAX package's default). ``stage``: the
+    pipeline stage this module is (default the whole model); only the
+    last stage holds the head, and a non-last stage returns its hidden
+    states, labels or not."""
 
     def __init__(
         self,
@@ -182,11 +236,13 @@ class Qwen3CausalLMBase(nn.Module):
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
         seed: int | None = 0,
+        stage: PipelineStageInfo = WHOLE_MODEL,
     ):
         super().__init__()
         dev = resolve_device(device)
         gen = _make_generator(seed, dev)
         self.seed = seed
+        self.stage = stage
         self.config = config
         self.decode_max_length = decode_max_length
         self.dtype = dtype
@@ -195,12 +251,14 @@ class Qwen3CausalLMBase(nn.Module):
         self.model = backbone(
             config, self.sdpa, decode_max_length=decode_max_length,
             dtype=dtype, param_dtype=param_dtype, device=dev, generator=gen,
+            stage=stage,
         )
-        self.lm_head = LanguageModellingHead(
-            config.vocab_ranges, config.hidden_size,
-            ce_chunk_size=ce_chunk_size, dtype=dtype,
-            param_dtype=param_dtype, device=dev, generator=gen,
-        )
+        if stage.is_last:
+            self.lm_head = LanguageModellingHead(
+                config.vocab_ranges, config.hidden_size,
+                ce_chunk_size=ce_chunk_size, dtype=dtype,
+                param_dtype=param_dtype, device=dev, generator=gen,
+            )
 
     def init_cache(
         self,
@@ -240,9 +298,10 @@ class Qwen3CausalLMBase(nn.Module):
         cache: Optional[DecodeCache] = None,
     ) -> torch.Tensor:
         """``x [B, T]`` tokens, ``positions [B, T]`` → per-token fp32 loss
-        ``[B, T]`` with ``labels``, else the final hidden state."""
+        ``[B, T]`` with ``labels`` on the last stage, else the stage's hidden
+        state."""
         h = self.model(x, positions, mask, cache)
-        if labels is not None:
+        if labels is not None and self.stage.is_last:
             return self.lm_head(h, labels)
         return h
 
@@ -288,9 +347,11 @@ class Qwen3DenseCausalLM(Qwen3CausalLMBase):
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
         seed: int | None = 0,
+        stage: PipelineStageInfo = WHOLE_MODEL,
     ):
         super().__init__(
             config, sdpa, Qwen3DenseBackbone,
             decode_max_length=decode_max_length, ce_chunk_size=ce_chunk_size,
             dtype=dtype, param_dtype=param_dtype, device=device, seed=seed,
+            stage=stage,
         )

@@ -3,7 +3,10 @@ head (counterpart of ``d9d_tpu/models/qwen3/moe.py``).
 
 The dense family's structure with the FFN replaced by a :class:`MoELayer`
 (every layer sparse, except the ``mlp_only_layers``, which keep a dense
-SwiGLU). Single pipeline stage, local experts: training, full-sequence
+SwiGLU). One pipeline stage of the model or all of it (``stage``, as the
+dense family's: the embedding on the first stage, the stage's layers under
+their global ids, the final norm and the head on the last), local
+experts: training, full-sequence
 forward and KV-cache decode (``decode_max_length > 0``: ``generate`` and
 ``ContinuousBatcher`` serve it as they serve the dense model, through the
 entry points of :class:`~d9d_tpu_torch.models.qwen3.dense.Qwen3CausalLMBase`).
@@ -28,8 +31,10 @@ from torch import nn
 
 from d9d_tpu_torch.core.device import resolve_device
 from d9d_tpu_torch.models.qwen3.dense import (
+    WHOLE_MODEL,
     Qwen3CausalLMBase,
-    run_decoder_layers,
+    stage_forward,
+    stage_layers,
 )
 from d9d_tpu_torch.nn.attention import (
     DecodeCache,
@@ -45,8 +50,8 @@ from d9d_tpu_torch.ops import (
     RopeScaling,
     RopeScalingNone,
     compute_rope_frequencies,
-    make_rope_cos_sin,
 )
+from d9d_tpu_torch.pipelining.stage_info import PipelineStageInfo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,23 +217,28 @@ class Qwen3MoeBackbone(nn.Module):
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
         generator: torch.Generator | None = None,
+        stage: PipelineStageInfo = WHOLE_MODEL,
     ):
         super().__init__()
         cfg = config
         _check_ported(cfg)
         self.config = cfg
+        self.stage = stage
         self.decode_max_length = decode_max_length
+        self.dtype = dtype
         dev = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
-        self.embed_tokens = TokenEmbedding(cfg.vocab_ranges, cfg.hidden_size,
-                                           **kw)
-        self.layers = nn.ModuleList(
+        if stage.is_first:
+            self.embed_tokens = TokenEmbedding(cfg.vocab_ranges,
+                                               cfg.hidden_size, **kw)
+        self.layers = stage_layers(cfg.num_layers, stage, lambda i: (
             Qwen3MoeDecoderLayer(cfg, sdpa, i, moe_ffn=moe_ffn,
-                                 decode_max_length=decode_max_length, **kw)
-            for i in range(cfg.num_layers))
-        self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps,
-                            zero_centered=cfg.zero_centered_norms, device=dev)
+                                 decode_max_length=decode_max_length, **kw)))
+        if stage.is_last:
+            self.norm = RMSNorm(cfg.hidden_size, eps=cfg.norm_eps,
+                                zero_centered=cfg.zero_centered_norms,
+                                device=dev)
         # partial rotary: frequencies over the rotary dim, not head_dim
         inv_freq, att_scale = compute_rope_frequencies(
             int(cfg.head_dim * cfg.rope_fraction), cfg.rope_theta,
@@ -247,12 +257,10 @@ class Qwen3MoeBackbone(nn.Module):
 
     def forward(self, x, positions, mask: Optional[torch.Tensor] = None,
                 cache: Optional[DecodeCache] = None):
-        """``x [B,T]`` token ids, ``positions [B,T]`` → hidden ``[B,T,E]``
-        (``cache``: as the dense backbone's, never under remat)."""
-        x = self.embed_tokens(x)
-        cos, sin = make_rope_cos_sin(positions, self.inv_freq,
-                                     self.rope_attention_scale)
-        return self.norm(run_decoder_layers(self, x, cos, sin, mask, cache))
+        """``x [B,T]`` token ids (hidden states after the first stage),
+        ``positions [B,T]`` → hidden ``[B,T,E]`` (``cache``: as the dense
+        backbone's, never under remat)."""
+        return stage_forward(self, x, positions, mask, cache)
 
 
 class Qwen3MoeCausalLM(Qwen3CausalLMBase):
@@ -274,8 +282,10 @@ class Qwen3MoeCausalLM(Qwen3CausalLMBase):
         param_dtype: torch.dtype | None = None,
         device: "torch.device | str | None" = None,
         seed: int | None = 0,
+        stage: PipelineStageInfo = WHOLE_MODEL,
     ):
         super().__init__(
             config, sdpa, functools.partial(Qwen3MoeBackbone, moe_ffn=moe_ffn),
             decode_max_length=decode_max_length, ce_chunk_size=ce_chunk_size,
-            dtype=dtype, param_dtype=param_dtype, device=device, seed=seed)
+            dtype=dtype, param_dtype=param_dtype, device=device, seed=seed,
+            stage=stage)

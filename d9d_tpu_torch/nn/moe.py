@@ -38,6 +38,7 @@ import torch.distributed as dist
 from torch import nn
 
 from d9d_tpu_torch.core.collectives import (
+    copy_pairs,
     exchange_rows,
     gather_from_group,
     split_to_group,
@@ -332,8 +333,9 @@ class LegacyPieces:
         home_in = [int((of[me] == piece[p]).sum())
                    if replica[p] == replica[me] else 0
                    for p in range(len(m))]
+        pairs, copies = copy_pairs(np.concatenate(send))
         return LegacyRoutes(
-            send=tensor(np.concatenate(send)), send_splits=out_split,
+            send=tensor(pairs), copies=copies, send_splits=out_split,
             recv_splits=in_split, order=tensor(order),
             back=tensor(np.concatenate(back)),
             back_splits=[int(len(b)) for b in back], home_splits=home_in,
@@ -344,7 +346,7 @@ class LegacyPieces:
 class LegacyRoutes:
     """One call's exchanges (``core/collectives.py`` ``exchange_rows``):
     the sub-block's rows out to the members holding their pieces
-    (``send``, ``send_splits``, ``recv_splits``, ``order``: the received
+    (``send``: pairs of the rows repeated ``copies`` times, ``send_splits``, ``recv_splits``, ``order``: the received
     rows in piece order), and each piece's results back to the members of
     this ep group whose sub-blocks hold them (``back``, ``back_splits``,
     ``home_splits``, ``home_order``: the received results in sub-block
@@ -358,6 +360,9 @@ class LegacyRoutes:
     back_splits: list
     home_splits: list
     home_order: torch.Tensor
+    # the copies of each row that ``send`` names (copy_pairs): one a
+    # member whose piece holds the row
+    copies: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -600,7 +605,8 @@ class MoELayer(nn.Module):
             # JAX's piece of the flattened global batch, in its row order
             x, probs, ids = (exchange_rows(
                 t, routes.send, routes.send_splits, routes.recv_splits,
-                routes.order, ep.legacy.group) for t in (x, probs, ids))
+                routes.order, ep.legacy.group, copies=routes.copies)
+                for t in (x, probs, ids))
         e_loc = self.num_experts // ep.world
         experts = self.grouped_experts
         weights = [_local(w) for w in (experts.gate_proj, experts.up_proj,

@@ -35,6 +35,18 @@ _TARGET_BLOCKS = 1024
 _MIN_SPLIT_KEYS = 128
 # key-validity types the cluster core reads as they come, and their widths
 _VALID_BYTES = {torch.bool: 1, torch.int32: 4}
+# head dims the decode cores of csrc/flash_decode.cu are built for (the
+# flash kernels' SUPPORTED_HEAD_DIMS also has 32, which these lack)
+DECODE_HEAD_DIMS = (64, 128)
+
+
+def _check_decode_head_dim(name: str, d: int) -> None:
+    """Raise ``ValueError`` for a head_dim the decode cores lack, before
+    any CUDA call."""
+    if d not in DECODE_HEAD_DIMS:
+        raise ValueError(
+            f"{name}: head_dim {d} is not supported by the decode kernels "
+            f"(supported: {DECODE_HEAD_DIMS})")
 
 
 def _broadcast_start(start, b: int, device) -> torch.Tensor:
@@ -244,6 +256,7 @@ def flash_decode(
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if hq % hkv != 0:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    _check_decode_head_dim("flash_decode", d)
     code = _check_kernel_inputs(
         "flash_decode", {"q": q, "k_cache": k_cache, "v_cache": v_cache}, d
     )
@@ -379,6 +392,7 @@ def _check_paged_inputs(q, k_pool, v_pool, page_table, k_scale, v_scale):
     if hq % k_pool.shape[1] != 0:
         raise ValueError(
             f"query heads {hq} not a multiple of kv heads {k_pool.shape[1]}")
+    _check_decode_head_dim("flash_decode_paged", d)
     if k_scale is None:
         code = _check_kernel_inputs(
             "flash_decode_paged", {"q": q, "k_pool": k_pool, "v_pool": v_pool},
@@ -592,6 +606,7 @@ def flash_decode_bytes(
 
 
 __all__ = [
+    "DECODE_HEAD_DIMS",
     "flash_decode",
     "flash_decode_plain",
     "flash_decode_paged",

@@ -18,8 +18,11 @@ builds, and the walk-back cases of
   ``None``; a step without a manifest restores unverified, and when its
   data is broken it is skipped but not pruned; a save killed mid-way
   restores an intact step.
+- Two ranks: a save waits for rank 0 to clear and make the step's
+  directory before any rank's DCP writer makes it.
 """
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -388,4 +391,56 @@ def test_kill_mid_async_save_restores_an_intact_step(tmp_path):
     got_step, got, meta = ck.restore(_arrays(0))
     assert got_step == 1 and meta["step"] == 1
     assert torch.equal(got["w"], _arrays(1)["w"])
+    ck.close()
+
+
+_RACE_SCRIPT = r"""
+import shutil, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+from d9d_tpu_torch.loop.components import checkpointer as ck
+
+rank = int(sys.argv[2])
+dist.init_process_group("gloo", init_method=sys.argv[3], rank=rank,
+                        world_size=2)
+if rank == 0:  # a pause between clearing the step's directory and making it
+    clear = shutil.rmtree
+
+    def slow_clear(path, *args, **kwargs):
+        clear(path, *args, **kwargs)
+        time.sleep(1.5)
+
+    ck.shutil.rmtree = slow_clear
+c = ck.StateCheckpointer(sys.argv[1], async_save=False)
+if rank == 1:
+    time.sleep(0.5)  # reaches its save inside rank 0's pause
+c.save(1, {{"w": torch.arange(4.0)}}, {{"step": 1}})
+dist.destroy_process_group()
+"""
+
+
+def test_save_waits_for_rank0_to_make_the_step_directory(tmp_path):
+    """DCP's writer makes the step's directory on every rank: a rank that
+    got there while rank 0 was between clearing and making it failed rank
+    0's ``mkdir`` with ``FileExistsError``."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    rdzv = f"file://{tmp_path / 'rdzv'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RACE_SCRIPT.format(repo=str(ROOT)),
+         str(tmp_path / "ck"), str(r), rdzv], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (
+            f"rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    ck = _checkpointer(tmp_path / "ck")
+    assert ck.all_steps() == [1]
     ck.close()

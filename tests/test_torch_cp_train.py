@@ -351,8 +351,10 @@ def test_cp_mesh_refusals():
                dict(cp_replicate=2), dict(cp_shard=2, tp=2)):
         with pytest.raises(RuntimeError, match="needs a process group"):
             MeshParameters(**kw).build(["cpu"] * MeshParameters(**kw).world_size)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        MeshParameters(cp_shard=2, pp=2).build(["cpu"] * 4)
+    # pp beside cp raises before any process group is asked for
+    for kw in (dict(cp_shard=2, pp=2), dict(cp_replicate=2, pp=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8.2"):
+            MeshParameters(**kw).build(["cpu"] * 4)
     # an ep mesh builds (over a process group); the legacy EP flow trains
     # on a cp mesh (the worker)
     with pytest.raises(RuntimeError, match="needs a process group"):

@@ -68,6 +68,11 @@ from d9d_tpu_torch.models.qwen3 import Qwen3DenseCausalLM, Qwen3DenseConfig
 from d9d_tpu_torch.nn.sdpa import SdpaEagerConfig, SdpaFlashConfig
 from d9d_tpu_torch.nn.sdpa.factory import build_sdpa_backend
 from d9d_tpu_torch.optim import AdamW
+from d9d_tpu_torch.pipelining import (
+    GPipeScheduleConfig,
+    LoopedBFSScheduleConfig,
+    ZeroBubbleVScheduleConfig,
+)
 
 torch.set_num_threads(1)
 
@@ -315,13 +320,14 @@ def test_sum_then_scale_weighs_microbatches_by_their_weight():
 
 
 # fields of the JAX config whose features are ported since this test was
-# written (checkpointing and prefetch): their cases keep their ids and now
-# check that the value is accepted and kept
-_PORTED_FIELDS = {"checkpoint_dir", "prefetch_batches"}
+# written (checkpointing, prefetch and the pipeline schedule): their cases
+# keep their ids and now check that the value is accepted and kept
+_PORTED_FIELDS = {"checkpoint_dir", "prefetch_batches", "pipeline"}
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pipeline", object()), ("checkpoint_dir", "ckpt"), ("profile_dir", "p"),
+    ("pipeline", ZeroBubbleVScheduleConfig(residual_policy="cache_acts")),
+    ("checkpoint_dir", "ckpt"), ("profile_dir", "p"),
     ("anomaly_policy", "skip_step"), ("telemetry_dir", "t"),
     ("metrics_port", 0), ("numerics_every_steps", 1),
     ("pp_timeline_every_steps", 1), ("zero_sharding", True),
@@ -365,12 +371,32 @@ def test_trainer_config_defaults_match_jax_except_the_pinned_three():
 
 def test_unported_options_raise():
     assert isinstance(build_optimizer(AdamWConfig(), [], 1e-3), AdamW)
-    # the mesh axis still to port raises before any process group is
-    # asked for, naming its ROADMAP item; an ep mesh asks for the group
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        MeshParameters(pp=2).build(["cpu"] * 2)
-    with pytest.raises(RuntimeError, match="needs a process group"):
-        MeshParameters(dp_shard=2, ep_shard=2).build(["cpu"] * 2)
+    # a pp mesh asks for the process group, as an ep mesh does; pp beside
+    # tp or ep_shard raises before any group is asked for, naming the
+    # ROADMAP item that ports it; a dict schedule becomes its config and
+    # an unknown schedule type raises
+    for kw in (dict(pp=2), dict(pp=2, dp_shard=2),
+               dict(dp_shard=2, ep_shard=2)):
+        with pytest.raises(RuntimeError, match="needs a process group"):
+            MeshParameters(**kw).build(
+                ["cpu"] * MeshParameters(**kw).world_size)
+    for kw in (dict(pp=2, tp=2), dict(pp=2, dp_shard=2, ep_shard=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8.2"):
+            MeshParameters(**kw).build(
+                ["cpu"] * MeshParameters(**kw).world_size)
+    kw = dict(global_batch_size=4, microbatch_size=2, seq_len=8,
+              total_steps=1)
+    assert TrainerConfig(**kw, pipeline={"type": "looped_bfs",
+                                         "stages_per_rank": 2}).pipeline \
+        == LoopedBFSScheduleConfig(stages_per_rank=2)
+    with pytest.raises(ValueError, match="unknown pipeline schedule"):
+        TrainerConfig(**kw, pipeline={"type": "one_f_one_b"})
+    # JAX's runtime key: the per-action executor is its "legacy" one
+    assert TrainerConfig(**kw, pipeline={"type": "gpipe",
+                                         "runtime": "legacy"}).pipeline \
+        == GPipeScheduleConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP A8.2"):
+        TrainerConfig(**kw, pipeline={"type": "gpipe", "runtime": "fused"})
     # fused_qkv under tp > 1 raises JAX's error where the plan cuts heads
     from d9d_tpu_torch.core.mesh import MeshContext
     from d9d_tpu_torch.parallel import apply_plan, tp_plan
